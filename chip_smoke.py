@@ -5,19 +5,39 @@
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
    and the build of the CUDA kernels in ``depgan_tpu_torch/csrc/``.
-2. Kernels: each kernel of the serving path against its plain PyTorch
-   version at every production shape (256x256 slices, first_fm 32, batch
-   4), in float32 (atol 1e-4: the indexing) and in bfloat16 (atol = rtol =
-   1e-2 against the plain version computed in float32 from the same bf16
-   inputs and rounded once: the rounding), with exactly-zero border rings.
+2. Kernels: each kernel against its plain PyTorch version at every shape of
+   the serving forward and the training superstep (256x256 slices,
+   first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
+   bfloat16 (atol = rtol = 1e-2 against the plain version computed in
+   float32 from the same bf16 inputs and rounded once: the rounding), with
+   exactly-zero border rings on NaN-poisoned outputs.
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
-   three synthetic 42-slice subjects against the plain float32 generator
-   with the same noise (max abs diff < 0.05), once more with the UResNet
-   softmax head, and the kernel launch counts of that run: exactly 8, 2, 2
-   and 1 per forward.
-4. Timing, for information: each kernel and its plain version at the
-   serving batch (42 slices), ms per subject of the ensemble, and a
-   profiler breakdown of one subject's device time.
+   two synthetic 42-slice subjects against the plain float32 generator with
+   the same noise (max abs diff < 0.05), once more with the UResNet softmax
+   head, and the launch counts of that run: exactly 8, 2, 2 and 1 per
+   forward for K1-K4 and no other kernel.
+4. Backward: every autograd rule at the production shapes (float32, batch
+   2) against autograd of its plain version, and the 5x5 conv's double
+   backward.
+5. Critic: ``FusedCritic``'s score, input gradient and the gradient
+   penalty's parameter gradient (float32, image 256, batch 2, three seeds)
+   against the plain ``DisC2DFCN1`` in float64 with ``create_graph``,
+   within CRITIC_LIMIT relative L2; the plain critic in float32 reported
+   beside, and the fused critic in bfloat16 as a control that must fail.
+6. Superstep: the fused superstep (float32, full width, batch 2, D = 2,
+   k = 2, three seeds) against the plain one in float64 from the same
+   state with the same draws: the same best noise, and the logged losses,
+   the updates, the last gradients (Adam's first moment) and each
+   parameter within SUPERSTEP_LIMITS; the plain float32 superstep reported
+   beside, and two controls that must fail every limit (the fused
+   superstep in bfloat16, and without the gradient penalty).
+7. Timing, for information: ``benchmarks.gan_step_bench`` (bf16, batch 16,
+   D = 5, k = 10: ms per superstep, the least of 3 after a warm-up), its
+   peak memory and exact launch counts, a profiler breakdown of one
+   superstep; each kernel's launches of that superstep replayed shape by
+   shape against its plain version and the library call that computes the
+   same function, beside the bound; the serving forward's kernels at batch
+   42 and ms per served subject.
 
 Prints one JSON line with the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -26,6 +46,7 @@ CUDA is absent or any check fails. Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,40 +55,86 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+IMAGE = 256         # image side of the model (ModelConfig's default)
 BATCH_CHECK = 4     # batch of the kernel checks
+BATCH_GRAD = 2      # batch of the backward, critic and superstep checks
 BATCH_SERVE = 42    # slices of one synthetic subject
-N_SUBJECTS = 3
+N_SUBJECTS = 2
 N_REPEAT = 10
+BATCH_TRAIN, D_ITERS, K_NOISE = 16, 5, 10  # benchmarks.gan_step_bench's workload
 DEVICE = "cuda"
+# Phases 5 and 6: seeds, and the limits against float64 (each set between
+# the float32 readings over the seeds and the controls', PERF.md section 6).
+CRITIC_SEEDS = (11, 21, 31)
+SUPERSTEP_SEEDS = (12, 22, 32)
+CRITIC_LIMIT = 2e-2  # relative L2 of the score and of each gradient
+SUPERSTEP_LIMITS = {
+    "losses": 1e-3,           # relative, each logged loss but the two below
+    "updated scores": 1e-2,   # errG_CY2, errG_DEM, relative to the critic scores' size
+    "updates": 5e-2,          # relative L2 of each network's parameter updates
+    "gradient": 1e-1,         # relative L2 of each network's last gradient
+    "max abs / lr": 2.0,      # largest error of one parameter, in units of lr
+}
+# Superstep paths: tag -> (use_pallas, compute dtype, with the gradient penalty)
+SUPERSTEP_RUNS = {"float64": (False, "float64", True), "fused": (True, "float32", True),
+                  "plain float32": (False, "float32", True),
+                  "control bfloat16": (True, "bfloat16", True),
+                  "control no GP": (True, "float32", False)}
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 PALLAS = "depgan_tpu/ops/conv_s2d_pallas.py"
-SOURCE = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # the entry points; engine in s2d_gemm.cuh
+GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d_gemm.cuh
+POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
 
-# name -> the Pallas kernel it replaces
-REPLACES = {
-    "conv3x3_s2d_fused": f"{PALLAS}:758",
-    "conv3x3_s2d_fused_pool": f"{PALLAS}:1043",
-    "conv3x3_s2d_fused2": f"{PALLAS}:1289",
-    "deconv_s2d": f"{PALLAS}:408",
+# name -> (source, the Pallas kernel it replaces)
+KERNELS = {
+    "conv3x3_s2d_fused": (GEMM_SRC, f"{PALLAS}:758"),
+    "conv3x3_s2d_fused[none]": (GEMM_SRC, f"{PALLAS}:758"),
+    "conv3x3_s2d_fused_pool": (GEMM_SRC, f"{PALLAS}:1043"),
+    "conv3x3_s2d_fused2": (GEMM_SRC, f"{PALLAS}:1289"),
+    "deconv_s2d": (GEMM_SRC, f"{PALLAS}:408"),
+    "pool_to_s2d": (POOL_SRC, f"{PALLAS}:283"),
+    "pool_s2d": (POOL_SRC, f"{PALLAS}:198"),
+    "conv5x5_s2d_fused": (GEMM_SRC, f"{PALLAS}:1918"),
 }
 LAUNCHES_PER_FORWARD = {"conv3x3_s2d_fused": 8, "conv3x3_s2d_fused_pool": 2,
                         "conv3x3_s2d_fused2": 2, "deconv_s2d": 1}
 
-# (kernel, label, shape arguments, launches of this shape per forward) at
-# the production shapes: n is the interior side of the output plane.
-CASES = (
-    ("conv3x3_s2d_fused", "L1 relu 32->128", dict(n=128, c4=32, co4=128), 1),
-    ("conv3x3_s2d_fused", "L1 relu 128->128", dict(n=128, c4=128, co4=128), 1),
-    ("conv3x3_s2d_fused", "L1 film 128", dict(n=128, c4=128, co4=128, film=True), 2),
-    ("conv3x3_s2d_fused", "L2 relu 128->256", dict(n=64, c4=128, co4=256), 1),
-    ("conv3x3_s2d_fused", "L2 relu 256->256", dict(n=64, c4=256, co4=256), 1),
-    ("conv3x3_s2d_fused", "L2 film 256", dict(n=64, c4=256, co4=256, film=True), 2),
-    ("conv3x3_s2d_fused_pool", "L1 pool s2d 128->128",
-     dict(n=128, c4=128, co4=128, pool="s2d"), 1),
-    ("conv3x3_s2d_fused_pool", "L2 pool pixel 256->256", dict(n=64, c4=256, co4=256, pool="pixel"), 1),
-    ("conv3x3_s2d_fused2", "p2 384+256->256", dict(n=64, c4=384, c4b=256, co4=256), 1),
-    ("conv3x3_s2d_fused2", "p1 256+128->128", dict(n=128, c4=256, c4b=128, co4=128), 1),
-    ("deconv_s2d", "p2->p1 256->256", dict(n=128, c4=256, co4=256), 1),
+# (kernel, label, problem without the batch), the problem as the wrappers
+# count it in conv_s2d.SHAPES: n is the interior side of the output plane
+# (of the input plane for the deconv and the pools).
+SERVING_CASES = (
+    ("conv3x3_s2d_fused", "L1 relu 32->128", (128, 32, 128, "relu")),
+    ("conv3x3_s2d_fused", "L1 relu 128->128", (128, 128, 128, "relu")),
+    ("conv3x3_s2d_fused", "L1 film 128", (128, 128, 128, "film")),
+    ("conv3x3_s2d_fused", "L2 relu 128->256", (64, 128, 256, "relu")),
+    ("conv3x3_s2d_fused", "L2 relu 256->256", (64, 256, 256, "relu")),
+    ("conv3x3_s2d_fused", "L2 film 256", (64, 256, 256, "film")),
+    ("conv3x3_s2d_fused_pool", "L1 pool s2d 128->128", (128, 128, 128, "s2d")),
+    ("conv3x3_s2d_fused_pool", "L2 pool pixel 256->256", (64, 256, 256, "pixel")),
+    ("conv3x3_s2d_fused2", "p2 384+256->256", (64, 384, 256, 256)),
+    ("conv3x3_s2d_fused2", "p1 256+128->128", (128, 256, 128, 128)),
+    ("deconv_s2d", "p2->p1 256->256", (64, 256, 256)),
+)
+TRAINING_CASES = (
+    ("conv3x3_s2d_fused[none]", "L1 dX 128->128", (128, 128, 128, "none")),
+    ("conv3x3_s2d_fused[none]", "p1 dX 128->256", (128, 128, 256, "none")),
+    ("conv3x3_s2d_fused[none]", "L2 dX 256->128", (64, 256, 128, "none")),
+    ("conv3x3_s2d_fused[none]", "L2 dX 256->256", (64, 256, 256, "none")),
+    ("conv3x3_s2d_fused[none]", "p2 dX 256->384", (64, 256, 384, "none")),
+    ("pool_to_s2d", "generator L1 128", (128, 128)),
+    ("pool_to_s2d", "critic L0 64", (128, 64)),
+    ("pool_s2d", "generator L2 256", (64, 256)),
+    ("pool_s2d", "critic L1 128", (64, 128)),
+    ("conv5x5_s2d_fused", "L0a 16->64", (128, 16, 64, "relu")),
+    ("conv5x5_s2d_fused", "L0b 64->64", (128, 64, 64, "relu")),
+    ("conv5x5_s2d_fused", "L1a 64->128", (64, 64, 128, "relu")),
+    ("conv5x5_s2d_fused", "L1b 128->128", (64, 128, 128, "relu")),
+    ("conv5x5_s2d_fused", "L0a dX 64->16", (128, 64, 16, "none")),
+    ("conv5x5_s2d_fused", "L0b dX 64->64", (128, 64, 64, "none")),
+    ("conv5x5_s2d_fused", "L1a dX 128->64", (64, 128, 64, "none")),
+    ("conv5x5_s2d_fused", "L1b dX 128->128", (64, 128, 128, "none")),
 )
 
 
@@ -76,42 +143,120 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def make_case(kernel: str, args: dict, batch: int, dtype, seed: int):
-    """Inputs of one case on the card, and two callables on them: the
-    kernel wrapper and the plain version."""
+def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
+    """Inputs of one launch on the card, and callables on them: the kernel
+    wrapper, the plain version and, where one PyTorch call computes the same
+    function, that call (on the same values in pixel layout, made before it
+    is timed); with the bytes and pixel-conv FLOPs the function needs and
+    which outputs are padded planes."""
     from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.ops import s2d_conv as S
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
+    b = problem[0]
 
     def randn(*shape, std=1.0, mean=0.0):
         return torch.randn(shape, generator=g, device=DEVICE) * std + mean
 
     def plane(n, c4):
-        return K.pad_s2d(randn(batch, n, n, c4)).to(dtype)
+        return K.pad_s2d(randn(b, n, n, c4)).to(dtype)
 
-    n, c4, co4 = args["n"], args["c4"], args["co4"]
-    bias = randn(co4, std=0.1)
-    if kernel == "deconv_s2d":
-        x = plane(n // 2, c4)
-        w2 = randn(c4 // 4, co4, std=(c4 // 4) ** -0.5).to(dtype)
-        return (lambda: K.deconv_s2d(x, w2, bias)), (lambda: K.deconv_s2d_plain(x, w2, bias))
-    x = plane(n, c4)
-    w4 = randn(2, 2, c4, co4, std=(4 * c4) ** -0.5).to(dtype)
-    if kernel == "conv3x3_s2d_fused2":
-        x2 = plane(n, args["c4b"])
-        w4b = randn(2, 2, args["c4b"], co4, std=(4 * args["c4b"]) ** -0.5).to(dtype)
-        return (lambda: K.conv3x3_s2d_fused2(x, x2, w4, w4b, bias),
-                lambda: K.conv3x3_s2d_fused2_plain(x, x2, w4, w4b, bias))
-    if kernel == "conv3x3_s2d_fused_pool":
-        pool = args["pool"]
-        return (lambda: K.conv3x3_s2d_fused_pool(x, w4, bias, pool=pool),
-                lambda: K.conv3x3_s2d_fused_pool_plain(x, w4, bias, pool=pool))
-    if args.get("film"):
-        gamma, beta = randn(batch, c4, std=0.3, mean=1.0), randn(batch, c4, std=0.3)
-        return (lambda: K.conv3x3_s2d_fused(x, w4, bias, gamma, beta, mode="film"),
-                lambda: K.conv3x3_s2d_fused_plain(x, w4, bias, gamma, beta, mode="film"))
-    return (lambda: K.conv3x3_s2d_fused(x, w4, bias),
-            lambda: K.conv3x3_s2d_fused_plain(x, w4, bias))
+    def pixel(x_padded):  # NCHW view with channels-last strides
+        return S.d2s(K.unpad_s2d(x_padded)).permute(0, 3, 1, 2)
+
+    def conv_weight(w):  # HWIO -> OIHW, channels last
+        return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).to(dtype)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def interior_bytes(*planes):  # input planes: their rings are zeros, never read
+        return sum(p.numel() // p.shape[1] ** 2 * (p.shape[1] - 2) ** 2 * p.element_size()
+                   for p in planes)
+
+    case = {"padded": (True,), "flops": 0.0, "library": None}
+    if name.startswith("conv3x3_s2d_fused") and name != "conv3x3_s2d_fused2":
+        _, n, c4, co4, mode = problem
+        c, co = c4 // 4, co4 // 4
+        w3, b3 = randn(3, 3, c, co, std=(9 * c) ** -0.5), randn(co, std=0.1)
+        w4, bias4 = S.conv3x3_to_s2d_kernel(w3, b3)
+        x, w4 = plane(n, c4), w4.to(dtype).contiguous()
+        args, extra = (x, w4, bias4), ()
+        case["flops"] = 2.0 * b * (2 * n) ** 2 * 9 * c * co
+        if name == "conv3x3_s2d_fused_pool":
+            case["kernel"] = lambda: K.conv3x3_s2d_fused_pool(*args, pool=mode)
+            case["plain"] = lambda: K.conv3x3_s2d_fused_pool_plain(*args, pool=mode)
+            case["padded"] = (True, mode == "s2d")
+            pooled = b * ((n // 2 + 2) ** 2 * co4 if mode == "s2d" else n * n * co)
+            case["bytes"] = (interior_bytes(x) + nbytes(*args[1:])
+                             + (b * (n + 2) ** 2 * co4 + pooled) * x.element_size())
+            return case
+        if mode == "film":
+            extra = (randn(b, c4, std=0.3, mean=1.0), randn(b, c4, std=0.3))
+        case["kernel"] = lambda: K._conv3x3_s2d_impl(*args, *extra, mode=mode)
+        case["plain"] = lambda: K.conv3x3_s2d_fused_plain(*args, *extra, mode=mode)
+        if mode != "film":
+            xp, wl, bl = pixel(x), conv_weight(w3), b3.to(dtype)
+            case["library"] = lambda: F.conv2d(xp, wl, bl, padding=1)
+        case["bytes"] = (interior_bytes(x) + nbytes(*args[1:], *extra)
+                         + b * (n + 2) ** 2 * co4 * x.element_size())
+    elif name == "conv3x3_s2d_fused2":
+        _, n, c4a, c4b, co4 = problem
+        ca, cb, co = c4a // 4, c4b // 4, co4 // 4
+        w3, b3 = randn(3, 3, ca + cb, co, std=(9 * (ca + cb)) ** -0.5), randn(co, std=0.1)
+        w4a, bias4 = S.conv3x3_to_s2d_kernel(w3[:, :, :ca], b3)
+        w4b, _ = S.conv3x3_to_s2d_kernel(w3[:, :, ca:])
+        args = (plane(n, c4a), plane(n, c4b), w4a.to(dtype).contiguous(),
+                w4b.to(dtype).contiguous(), bias4)
+        case["kernel"] = lambda: K._conv2_impl(*args)
+        case["plain"] = lambda: K.conv3x3_s2d_fused2_plain(*args)
+        xp = torch.cat([pixel(args[0]), pixel(args[1])], dim=1).contiguous(
+            memory_format=torch.channels_last)
+        wl, bl = conv_weight(w3), b3.to(dtype)
+        case["library"] = lambda: F.conv2d(xp, wl, bl, padding=1)
+        case["flops"] = 2.0 * b * (2 * n) ** 2 * 9 * (ca + cb) * co
+        case["bytes"] = (interior_bytes(*args[:2]) + nbytes(*args[2:])
+                         + b * (n + 2) ** 2 * co4 * args[0].element_size())
+    elif name == "deconv_s2d":
+        _, m, c4, o4 = problem
+        c = c4 // 4
+        w2, bias = randn(c, o4, std=c ** -0.5), randn(o4 // 4, std=0.1)
+        args = (plane(m, c4), w2.to(dtype), bias.repeat(4))
+        case["kernel"] = lambda: K._deconv_impl(*args)
+        case["plain"] = lambda: K.deconv_s2d_plain(*args)
+        xp = pixel(args[0])
+        wt = w2.reshape(c, 2, 2, o4 // 4).permute(0, 3, 1, 2).contiguous().to(dtype)
+        bl = bias.to(dtype)
+        case["library"] = lambda: F.conv_transpose2d(xp, wt, bl, stride=2)
+        case["flops"] = 2.0 * b * (2 * m) ** 2 * c * o4
+        case["bytes"] = (interior_bytes(args[0]) + nbytes(*args[1:])
+                         + b * (2 * m + 2) ** 2 * o4 * args[0].element_size())
+    elif name in ("pool_to_s2d", "pool_s2d"):
+        _, n, c4 = problem
+        x = plane(n, c4)
+        to_s2d = name == "pool_to_s2d"
+        case["kernel"] = lambda: K._pool_impl(x, to_s2d)
+        case["plain"] = lambda: (K.pool_to_s2d_plain if to_s2d else K.pool_s2d_plain)(x)
+        case["padded"] = (to_s2d,)
+        if not to_s2d:
+            case["library"] = lambda: torch.amax(K.unpad_s2d(x).unflatten(-1, (4, c4 // 4)), dim=3)
+        out = (b, n // 2 + 2, n // 2 + 2, c4) if to_s2d else (b, n, n, c4 // 4)
+        case["bytes"] = interior_bytes(x) + np.prod(out) * x.element_size()
+    elif name == "conv5x5_s2d_fused":
+        _, n, c4, co4, mode = problem
+        w5 = randn(5, 5, c4 // 4, co4 // 4, std=(25 * c4 / 4) ** -0.5)
+        w9, bias4 = S.conv5x5_to_s2d_kernel(w5, randn(co4 // 4, std=0.1))
+        args = (plane(n, c4), w9.to(dtype).contiguous(), bias4)
+        case["kernel"] = lambda: K._conv5_impl(*args, mode=mode)
+        case["plain"] = lambda: K.conv5x5_s2d_fused_plain(*args, mode=mode)
+        xp, wl, bl = pixel(args[0]), conv_weight(w5), bias4[:co4 // 4].to(dtype)
+        case["library"] = lambda: F.conv2d(xp, wl, bl, padding=2)
+        case["flops"] = 2.0 * b * (2 * n) ** 2 * 25 * (c4 // 4) * (co4 // 4)
+        case["bytes"] = (interior_bytes(args[0]) + nbytes(*args[1:])
+                         + b * (n + 2) ** 2 * co4 * args[0].element_size())
+    else:
+        raise ValueError(name)
+    return case
 
 
 def ring_is_zero(plane: torch.Tensor) -> bool:
@@ -133,32 +278,32 @@ def poison_allocator(shapes, dtype) -> None:
 def check_kernels() -> dict[str, float]:
     """Phase 2; returns the largest abs error of each kernel."""
     worst: dict[str, float] = {}
-    for i, (kernel, label, args, _) in enumerate(CASES):
+    for i, (name, label, problem) in enumerate(SERVING_CASES + TRAINING_CASES):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-            run_kernel, run_plain = make_case(kernel, args, BATCH_CHECK, dtype, seed=i)
-            ref = run_plain()
+            case = make_case(name, (BATCH_CHECK, *problem), dtype, seed=i)
+            ref = case["plain"]()
             ref = ref if isinstance(ref, tuple) else (ref,)
             poison_allocator([r.shape for r in ref], dtype)
-            out = run_kernel()
+            out = case["kernel"]()
             out = out if isinstance(out, tuple) else (out,)
             torch.cuda.synchronize()
             err = 0.0
             for j, (o, r) in enumerate(zip(out, ref)):
                 check(o.shape == r.shape and o.dtype == r.dtype,
-                      f"{kernel} {label}: output {j} {o.dtype} {tuple(o.shape)} "
+                      f"{name} {label}: output {j} {o.dtype} {tuple(o.shape)} "
                       f"vs {r.dtype} {tuple(r.shape)}")
                 diff = (o.float() - r.float()).abs()
-                check(bool(torch.isfinite(o).all()), f"{kernel} {label}: non-finite output")
+                check(bool(torch.isfinite(o).all()), f"{name} {label}: non-finite output")
                 err = max(err, float(diff.max()))
                 limit = tol + (tol * r.float().abs() if dtype == torch.bfloat16 else 0.0)
                 check(bool((diff <= limit).all()),
-                      f"{kernel} {label} {dtype}: max abs err {float(diff.max()):.3e}")
-                if not (j == 1 and args.get("pool") == "pixel"):  # a padded plane
-                    check(ring_is_zero(o), f"{kernel} {label}: ring of output {j} not zero")
-            worst[kernel] = max(worst.get(kernel, 0.0), err)
+                      f"{name} {label} {dtype}: max abs err {float(diff.max()):.3e}")
+                if case["padded"][j]:
+                    check(ring_is_zero(o), f"{name} {label}: ring of output {j} not zero")
+            worst[name] = max(worst.get(name, 0.0), err)
             bound = f"atol {tol:g}" + (f", rtol {tol:g}" if dtype == torch.bfloat16 else "")
-            print(f"kernel {kernel} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
-                  f"({bound}), ring zero")
+            print(f"kernel {name} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
+                  f"({bound}), rings zero")
     return worst
 
 
@@ -174,47 +319,37 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_kernels() -> dict[str, tuple[float, float]]:
-    """Phase 4a: per kernel, ms of its launches in one forward of a
-    42-slice subject, kernel and plain version, bf16."""
-    per_kernel: dict[str, tuple[float, float]] = {}
-    for i, (kernel, label, args, per_forward) in enumerate(CASES):
-        run_kernel, run_plain = make_case(kernel, args, BATCH_SERVE, torch.bfloat16, seed=i)
-        plain_ms, kernel_ms = time_ms(run_plain, 3), time_ms(run_kernel, 10)
-        plain_ms2, kernel_ms2 = time_ms(run_plain, 3), time_ms(run_kernel, 10)
-        k_ms, p_ms = min(kernel_ms, kernel_ms2), min(plain_ms, plain_ms2)
-        print(f"time {kernel} [{label}] batch {BATCH_SERVE}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, x{per_forward} per forward")
-        k, p = per_kernel.get(kernel, (0.0, 0.0))
-        per_kernel[kernel] = (k + per_forward * k_ms, p + per_forward * p_ms)
-    return per_kernel
+def time_case(case: dict) -> dict:
+    """Kernel, plain and library ms of one launch (best of two runs each,
+    interleaved), and its bound."""
+    k = min(time_ms(case["kernel"], 10), time_ms(case["kernel"], 10))
+    p = min(time_ms(case["plain"], 3), time_ms(case["plain"], 3))
+    lib = None
+    if case["library"] is not None:
+        lib = min(time_ms(case["library"], 10), time_ms(case["library"], 10))
+    t_ops, t_bytes = case["flops"] / PEAK_FLOPS * 1e3, case["bytes"] / PEAK_BYTES * 1e3
+    return {"ms": k, "plain_ms": p, "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
+            "ops_ms": t_ops, "bytes_ms": t_bytes}
 
 
-def profile_subject(fast, x, mask) -> None:
-    """Phase 4c: device time by kernel over one subject, and the device's
-    idle share of that subject's wall time (the profiler's own overhead is
-    in the wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fast.predict(x, mask)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side rows only (kernels and copies); operator rows would count
-    # their kernels' time a second time.
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  reverse=True)
-    if not rows:
-        print("profile: the profiler recorded no device time (idle share not measured)")
-        return
-    busy_ms = sum(r[0] for r in rows)
-    print(f"profile: one subject, wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}")
-    for ms, count, name in rows[:12]:
-        print(f"profile: {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+def replay(shapes: dict, dtype, what: str) -> dict[str, dict]:
+    """Times every (kernel, problem) of a run with its count of launches
+    and sums them by kernel: ms, plain ms, library ms (null where a launch
+    has no library call) and bound ms of that run's kernel launches."""
+    totals: dict[str, dict] = {}
+    for i, ((name, problem), count) in enumerate(sorted(shapes.items(), key=str)):
+        t = time_case(make_case(name, problem, dtype, seed=100 + i))
+        lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        print(f"time {what} {name} {problem} x{count}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {lib} ms, bound {t['bound_ms']:.4f} ms "
+              f"(bytes {t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f})")
+        tot = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                       "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
+        for key in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
+            tot[key] += count * t[key]
+        tot["library_ms"] = (None if tot["library_ms"] is None or t["library_ms"] is None
+                             else tot["library_ms"] + count * t["library_ms"])
+    return totals
 
 
 def randomized_variables(cfg, seed: int) -> dict:
@@ -278,12 +413,391 @@ def serve(cfg, seed: int, n_subjects: int):
     return worst, fast, subjects
 
 
+def close(a: torch.Tensor | None, b: torch.Tensor | None, rel: float, what: str) -> float:
+    """Checks max|a - b| <= rel * max|b| (None counts as zeros: a gradient
+    that only masks reach); returns the relative error."""
+    if a is None and b is None:
+        return 0.0
+    a = torch.zeros_like(b) if a is None else a.detach()
+    b = torch.zeros_like(a) if b is None else b.detach()
+    err, scale = float((a - b).double().abs().max()), float(b.abs().max())
+    check(err <= rel * scale + 1e-12, f"{what}: error {err:.3e} at scale {scale:.3e}")
+    return err / max(scale, 1e-30)
+
+
+def check_backward() -> None:
+    """Phase 4: each autograd rule against autograd of its plain version,
+    float32, batch 2, production shapes; padded-plane gradients compared on
+    the interior (the plain version also differentiates the ring)."""
+    from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.ops import s2d_conv as S
+
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=DEVICE) * std
+
+    def plane(n, c4):
+        return K.pad_s2d(randn(BATCH_GRAD, n, n, c4))
+
+    def w4(ci, co):
+        return S.conv3x3_to_s2d_kernel(randn(3, 3, ci, co, std=(9 * ci) ** -0.5))[0].contiguous()
+
+    def conv5_plain(x, w5, b, mode="relu"):
+        return K.conv5x5_s2d_fused_plain(x, *S.conv5x5_to_s2d_kernel(w5, b), mode=mode)
+
+    gamma, beta = 1.0 + randn(BATCH_GRAD, 256, std=0.3), randn(BATCH_GRAD, 256, std=0.3)
+    cases = {
+        "K1 relu L1 128->128": (K.conv3x3_s2d_fused, K.conv3x3_s2d_fused_plain,
+                                (plane(128, 128), w4(32, 32), randn(128, std=0.1))),
+        "K1 film L2 256": (lambda *a: K.conv3x3_s2d_fused(*a, mode="film"),
+                           lambda *a: K.conv3x3_s2d_fused_plain(*a, mode="film"),
+                           (plane(64, 256), w4(64, 64), randn(256, std=0.1), gamma, beta)),
+        "K3 p1 256+128->128": (K.conv3x3_s2d_fused2, K.conv3x3_s2d_fused2_plain,
+                               (plane(128, 256), plane(128, 128), w4(64, 32), w4(32, 32),
+                                randn(128, std=0.1))),
+        "K4 p2->p1 256->256": (K.deconv_s2d, K.deconv_s2d_plain,
+                               (plane(64, 256), randn(64, 256, std=0.125), randn(256, std=0.1))),
+        "K5 generator L1": (K.pool_to_s2d, K.pool_to_s2d_plain, (plane(128, 128),)),
+        "K5 critic L0": (K.pool_to_s2d, K.pool_to_s2d_plain, (plane(128, 64),)),
+        "K6 generator L2": (K.pool_s2d, K.pool_s2d_plain, (plane(64, 256),)),
+        "K6 critic L1": (K.pool_s2d, K.pool_s2d_plain, (plane(64, 128),)),
+        "K7 relu L0a 16->64": (K.conv5x5_s2d_fused, conv5_plain,
+                               (plane(128, 16), randn(5, 5, 4, 16, std=0.1), randn(16, std=0.1))),
+        "K7 relu L1b 128->128": (K.conv5x5_s2d_fused, conv5_plain,
+                                 (plane(64, 128), randn(5, 5, 32, 32, std=0.035),
+                                  randn(32, std=0.1))),
+        "K7 none L0a dX 64->16": (lambda *a: K.conv5x5_s2d_fused(*a, mode="none"),
+                                  lambda *a: conv5_plain(*a, mode="none"),
+                                  (plane(128, 64), randn(5, 5, 16, 4, std=0.05),
+                                   randn(4, std=0.1))),
+    }
+    for label, (fn, plain, inputs) in cases.items():
+        results = []
+        for f in (fn, plain):
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
+            out = f(*leaves)
+            r = torch.randn(out.shape, generator=torch.Generator(device=DEVICE).manual_seed(1),
+                            device=DEVICE)
+            results.append((out, torch.autograd.grad((out * r).sum(), leaves)))
+        (out, grads), (ref, ref_grads) = results
+        close(out, ref, 1e-5, f"{label} forward")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(grads, ref_grads)):
+            if a.ndim == 4 and a.shape[1] == a.shape[2] and a.shape[1] > 5:
+                a, b = K.unpad_s2d(a), K.unpad_s2d(b)
+            worst = max(worst, close(a, b, 1e-4, f"{label} gradient {i}"))
+        print(f"backward {label}: gradients within {worst:.2e} relative of autograd of plain")
+
+    # The 5x5 conv's double backward: grad of sum(dX^2) wrt w5 and x.
+    x, w5, b = plane(128, 16), randn(5, 5, 4, 16, std=0.1), randn(16, std=0.1)
+    r = randn(BATCH_GRAD, 130, 130, 64)
+    second = []
+    for conv in (K.conv5x5_s2d_fused, conv5_plain):
+        xx, ww = x.clone().requires_grad_(), w5.clone().requires_grad_()
+        (dx,) = torch.autograd.grad((conv(xx, ww, b) * r).sum(), xx, create_graph=True)
+        second.append(torch.autograd.grad((K.unpad_s2d(dx) ** 2).sum(), (xx, ww),
+                                          allow_unused=True))
+    ex = close(second[0][0], second[1][0], 1e-4, "K7 double backward wrt x")
+    ew = close(second[0][1], second[1][1], 1e-4, "K7 double backward wrt w5")
+    print(f"backward K7 double backward: wrt x {ex:.2e}, wrt w5 {ew:.2e} relative")
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64 (||a|| where b is zero); a missing
+    gradient counts as zeros (biases reach the input gradient only through
+    masks)."""
+    if a is None and b is None:
+        return 0.0
+    a = torch.zeros_like(b) if a is None else a.detach()
+    b = torch.zeros_like(a) if b is None else b.detach()
+    diff, scale = float((a.double() - b.double()).norm()), float(b.double().norm())
+    return diff / scale if scale > 0 else diff
+
+
+def critic_errors(seed: int) -> dict[str, list[float]]:
+    """Relative L2 errors, against the plain critic in float64 with
+    ``create_graph``, of the score, the input gradient and each gradient
+    penalty's parameter gradient (image 256, batch 2, weights, biases and
+    input from ``seed``): of the fused critic in float32, of the plain
+    critic in float32, and of the fused critic in bfloat16 (the control)."""
+    from depgan_tpu_torch.config import ModelConfig
+    from depgan_tpu_torch.io.flax_bridge import (
+        flatten_tree, load_flax_variables, unflatten_tree)
+    from depgan_tpu_torch.models import DisC2DFCN1, init_critic
+    from depgan_tpu_torch.ops.fast_critic import FusedCritic
+
+    cfg = ModelConfig(image_size=IMAGE, first_fm=32)
+    rng = np.random.default_rng(seed)
+    flat = flatten_tree(init_critic(cfg, seed=seed)["params"])
+    for name in flat:  # non-zero biases
+        if name.endswith(".bias"):
+            flat[name] = rng.normal(0, 0.05, flat[name].shape).astype(np.float32)
+    tree = {"params": unflatten_tree(flat)}
+    x = torch.tensor(rng.uniform(size=(BATCH_GRAD, IMAGE, IMAGE, 1)), dtype=torch.float32,
+                     device=DEVICE)
+
+    def gp(grad):
+        return ((grad.square().sum((1, 2, 3)).sqrt() - 1) ** 2).mean()
+
+    runs = {}
+    for dt in (torch.float64, torch.float32):
+        module = load_flax_variables(DisC2DFCN1(cfg, device=DEVICE), tree).to(dt)
+        module.cfg = ModelConfig(image_size=IMAGE, first_fm=32, compute_dtype=str(dt)[6:])
+        xx = x.to(dt).requires_grad_()
+        score = module(xx)
+        (grad,) = torch.autograd.grad(score.sum(), xx, create_graph=True)
+        gp(grad).backward()
+        runs[f"plain {str(dt)[6:]}"] = (score, grad, {k: p.grad for k, p in
+                                                       module.named_parameters()})
+    for dt in (torch.float32, torch.bfloat16):
+        params = {k: torch.tensor(v, device=DEVICE, requires_grad=True) for k, v in flat.items()}
+        score, grad = FusedCritic(cfg, dt).score_and_input_grad(params, x)
+        gp(grad).backward()
+        runs[f"fused {str(dt)[6:]}"] = (score, grad, {k: p.grad for k, p in params.items()})
+    ref, ref_grad, ref_params = runs.pop("plain float64")
+    return {tag: [rel_l2(score, ref), rel_l2(grad, ref_grad)]
+            + [rel_l2(grads[name], g) for name, g in ref_params.items()]
+            for tag, (score, grad, grads) in runs.items()}
+
+
+def check_critic() -> None:
+    """Phase 5: FusedCritic against the plain critic in float64, image IMAGE,
+    over CRITIC_SEEDS. Float32 itself is 1e-4 to 5e-3 (relative L2) off
+    float64 here: a 2x2 max-pool window whose two largest values lie within
+    float32 rounding of each other sends its cotangent to the other one.
+    The limit sits between the float32 readings and the bfloat16 control's,
+    and the control must exceed it, so the check still sees a fault of the
+    size of a precision fault."""
+    worst, control = 0.0, float("inf")
+    for seed in CRITIC_SEEDS:
+        errs = critic_errors(seed)
+        print(f"critic seed {seed}: relative L2 against the plain critic in float64 (score, "
+              f"input gradient, the largest of {len(errs['fused float32']) - 2} GP parameter "
+              f"gradients): " + "; ".join(f"{tag} {e[0]:.3e}, {e[1]:.3e}, {max(e[2:]):.3e}"
+                                          for tag, e in errs.items()))
+        worst = max(worst, max(errs["fused float32"]))
+        control = min(control, max(errs["fused bfloat16"]))
+    check(worst <= CRITIC_LIMIT, f"fused critic {worst:.3e} relative L2 off float64, "
+                                 f"limit {CRITIC_LIMIT:g}")
+    check(control > CRITIC_LIMIT, f"the bfloat16 control reads {control:.3e}, within the "
+                                  f"limit {CRITIC_LIMIT:g}: the check cannot tell it apart")
+    print(f"critic: fused float32 at most {worst:.3e}, bfloat16 control at least "
+          f"{control:.3e}, limit {CRITIC_LIMIT:g} (relative L2 against float64)")
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def superstep_errors(seed: int) -> tuple[dict, int]:
+    """One superstep (full width, batch 2, D = 2, k = 2) from one state
+    with the same draws, on each path of SUPERSTEP_RUNS, against the plain
+    float64 superstep. The state (from ``seed``) has non-trivial BatchNorm
+    and Adam moments that are not zero, so that the updates are not all
+    +-lr of a rounding-level gradient. Returns, for each path: each logged
+    loss's error relative to its own size, or to the critic scores' size
+    for errG_CY2 and errG_DEM (which sit near zero); for each network the
+    relative L2 of its updates, their largest abs error and the largest
+    update, and the relative L2 of Adam's first moment, which with b1 = 0
+    is the last step's gradient (linear in it, where the updates saturate
+    at ~1.86 lr); and the best noise index. Also the float64 best index."""
+    from depgan_tpu_torch.config import DataConfig, GanTrainConfig, ModelConfig
+    from depgan_tpu_torch.io.flax_bridge import flatten_tree as flatten
+    from depgan_tpu_torch.io.flax_bridge import gan_train_state_from_trees
+    from depgan_tpu_torch.models import init_critic
+    from depgan_tpu_torch.train.gan_trainer import GEN_KEYS, GanTrainer
+    from depgan_tpu_torch.train.state import adam_moments
+
+    d, k = 2, 2
+    rng = np.random.default_rng(seed)
+    gen = randomized_variables(ModelConfig(image_size=IMAGE, first_fm=32), seed=seed)
+    trees = {"g_params": gen["params"], "g_stats": gen["batch_stats"]}
+    for i, name in enumerate(("dy2", "ddem")):
+        critic = init_critic(ModelConfig(image_size=IMAGE), seed=seed + 1 + i)
+        trees[f"{name}_params"] = critic["params"]
+    for name in ("g", "dy2", "ddem"):
+        trees[f"{name}_opt"] = {
+            "count": 3,
+            "mu": tree_map(lambda a: rng.normal(0, 1e-3, a.shape).astype(np.float32),
+                           trees[f"{name}_params"]),
+            "nu": tree_map(lambda a: rng.uniform(1e-6, 1e-5, a.shape).astype(np.float32),
+                           trees[f"{name}_params"])}
+    x_all, y_all = (torch.tensor(rng.uniform(size=(8, IMAGE, IMAGE, 1)), dtype=torch.float32,
+                                 device=DEVICE) for _ in range(2))
+    idx = np.array([[3, 5], [0, 7]])
+    runs = {}
+    for tag, (use_pallas, dtype, with_gp) in SUPERSTEP_RUNS.items():
+        cfg = ModelConfig(image_size=IMAGE, first_fm=32, use_pallas=use_pallas,
+                          compute_dtype=dtype)
+        train_cfg = GanTrainConfig(batch_size=BATCH_GRAD, d_iters=d, warmup_d_iters=d,
+                                   k_noise=k)
+        if not with_gp:
+            train_cfg = dataclasses.replace(train_cfg, gp_weight=0.0)
+        trainer = GanTrainer(cfg, train_cfg, DataConfig(), DEVICE)
+        state = gan_train_state_from_trees(trees, train_cfg.lr_g, train_cfg.lr_d,
+                                           train_cfg.adam_b1, train_cfg.adam_b2, DEVICE)
+        draws = trainer.draw(d, BATCH_GRAD, torch.Generator(device=DEVICE).manual_seed(seed + 1))
+        runs[tag] = trainer.superstep(state, x_all, y_all, idx, d, draws=draws)
+    ref_state, ref = runs.pop("float64")
+    crit = ("crit_y2_real", "crit_y2_fake", "crit_dem_real", "crit_dem_fake")
+    score_size = max(float(ref[key].abs().max()) for key in crit)
+    starts = {part: {n: torch.as_tensor(v, device=DEVICE)
+                     for n, v in flatten(trees[f"{part}_params"]).items()}
+              for part in ("g", "dy2", "ddem")}
+
+    def moment(state, part):
+        params = getattr(state, f"{part}_params")
+        return adam_moments(getattr(state, f"{part}_opt"), params)[1]
+
+    out = {}
+    for tag, (state, metrics) in runs.items():
+        losses = {key: (metrics[key], ref[key]) for key in crit}
+        losses.update({key: (metrics["gen"][key], ref["gen"][key]) for key in GEN_KEYS})
+        loss_err = {}
+        for key, (a, b) in losses.items():
+            floor = score_size if key in crit + ("errG_CY2", "errG_DEM") else 0.0
+            loss_err[key] = float(((a - b).abs() / b.abs().clamp_min(max(floor, 1e-30))).max())
+        parts = {}
+        for part, start in starts.items():
+            a, b = getattr(state, f"{part}_params"), getattr(ref_state, f"{part}_params")
+            du = torch.cat([(a[n] - b[n]).detach().flatten() for n in a]).double()
+            up = torch.cat([(b[n].detach() - start[n]).flatten() for n in a]).double()
+            mu, ref_mu = moment(state, part), moment(ref_state, part)
+            grad = rel_l2(torch.cat([mu[n].flatten() for n in mu]),
+                          torch.cat([ref_mu[n].flatten() for n in mu]))
+            parts[part] = {"updates": float(du.norm() / up.norm()),
+                           "max_abs": float(du.abs().max()), "size": float(up.abs().max()),
+                           "gradient": grad}
+        out[tag] = {"losses": loss_err, "parts": parts, "best": int(metrics["best_noise_idx"])}
+    return out, int(ref["best_noise_idx"])
+
+
+def check_superstep() -> None:
+    """Phase 6: the fused superstep against the plain float64 one over
+    SUPERSTEP_SEEDS (the plain float32 one reported beside). Float32 on
+    either path comes out ~1e-2 (relative L2) off float64 in the critics'
+    updates and gradients, as in phase 5, and so do the scores the updated
+    critics give (errG_CY2, errG_DEM). Held, for every seed: the same best
+    noise, and each reading of SUPERSTEP_LIMITS within its limit; each
+    limit sits between the float32 readings and the controls' (the fused
+    superstep in bfloat16, and without the gradient penalty), and the
+    controls must exceed every limit."""
+    from depgan_tpu_torch.config import GanTrainConfig
+
+    lrs = {"g": GanTrainConfig().lr_g, "dy2": GanTrainConfig().lr_d,
+           "ddem": GanTrainConfig().lr_d}
+    scores = ("errG_CY2", "errG_DEM")
+    worst = dict.fromkeys(SUPERSTEP_LIMITS, 0.0)
+    control = {tag: dict.fromkeys(SUPERSTEP_LIMITS, float("inf"))
+               for tag in SUPERSTEP_RUNS if tag.startswith("control")}
+    for seed in SUPERSTEP_SEEDS:
+        readings, ref_best = superstep_errors(seed)
+        for tag, r in readings.items():
+            parts = "; ".join(f"{part} updates {p['updates']:.3e} (max abs {p['max_abs']:.3e} "
+                              f"of {p['size']:.3e}), gradient {p['gradient']:.3e}"
+                              for part, p in r["parts"].items())
+            losses = ", ".join(f"{key} {err:.2e}" for key, err in r["losses"].items())
+            print(f"superstep seed {seed} {tag} against float64: {parts}; losses {losses}; "
+                  f"best noise {r['best']} (float64 {ref_best})")
+            summary = {
+                "losses": max(e for key, e in r["losses"].items() if key not in scores),
+                "updated scores": max(r["losses"][key] for key in scores),
+                "updates": max(p["updates"] for p in r["parts"].values()),
+                "gradient": max(p["gradient"] for p in r["parts"].values()),
+                "max abs / lr": max(p["max_abs"] / lrs[part] for part, p in r["parts"].items())}
+            for key, value in summary.items():
+                if tag in control:
+                    control[tag][key] = min(control[tag][key], value)
+                elif tag == "fused":
+                    worst[key] = max(worst[key], value)
+        best = readings["fused"]["best"]
+        check(best == ref_best, f"seed {seed} best noise index: fused {best}, float64 {ref_best}")
+    print("superstep: against float64, the largest over networks and seeds: "
+          + "; ".join(f"{key}: fused float32 {worst[key]:.3e}, "
+                      + ", ".join(f"{tag} {c[key]:.3e}" for tag, c in control.items())
+                      + f", limit {limit:g}" for key, limit in SUPERSTEP_LIMITS.items()))
+    for key, limit in SUPERSTEP_LIMITS.items():
+        check(worst[key] <= limit, f"fused superstep {key} {worst[key]:.3e} off float64, "
+                                   f"limit {limit:g}")
+        for tag, c in control.items():
+            check(c[key] > limit, f"{tag} {key} reads {c[key]:.3e}, within the limit {limit:g}")
+
+
+def expected_superstep_launches(d: int, k: int) -> dict[str, int]:
+    """Kernel launches of one fused superstep with D critic steps per
+    critic and k probe noises.
+
+    Generator forwards: 2D (critic loops) + k (probe) + 1 (its step), each
+    K1 x10 (6 relu, 4 film), K3 x2, K4 x1, K5 x1, K6 x1; its backward adds
+    17 K1 'none' launches (dX of 5 relu convs, c0 and dX of 4 FiLM sites,
+    2 dX of each K3; the entry conv's dX is skipped). Critic forward: K7
+    x4, K5 x1, K6 x1. A critic step: forwards of real and fake, the levels
+    and the 4 transposed K7 of the input gradient, and in its backward 3 K7
+    dX for each forward (the image needs none) and 4 for the chain: K7 26,
+    K5 3, K6 3. The generator's step scores its output with both critics
+    (8 K7, 2 K5, 2 K6) and takes their input gradient (8 K7); the probe
+    scores k outputs with both critics.
+    """
+    gen_fwd, steps, probe = 2 * d + k + 1, 2 * d, 2 * k
+    return {"conv3x3_s2d_fused": 10 * gen_fwd, "conv3x3_s2d_fused[none]": 17,
+            "conv3x3_s2d_fused_pool": 0, "conv3x3_s2d_fused2": 2 * gen_fwd,
+            "deconv_s2d": gen_fwd, "pool_to_s2d": gen_fwd + 3 * steps + probe + 2,
+            "pool_s2d": gen_fwd + 3 * steps + probe + 2,
+            "conv5x5_s2d_fused": 26 * steps + 4 * probe + 16}
+
+
+def profile_once(fn, what: str, unprofiled_ms: float) -> None:
+    """Device time by kernel over one call of ``fn``, and the device's idle
+    share: of the profiled wall time (which holds the profiler's own
+    overhead) and of ``unprofiled_ms``, the same call timed without it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side rows only (kernels and copies): operator rows, and the
+    # device spans of ranges such as Optimizer.step or the superstep's
+    # phases, would count their kernels' time a second time.
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)), reverse=True)
+    if not rows:
+        print(f"profile {what}: the profiler recorded no device time (idle share not measured)")
+        return
+    busy_ms = sum(r[0] for r in rows)
+    print(f"profile {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; of the unprofiled {unprofiled_ms:.2f} ms "
+          f"{1 - busy_ms / unprofiled_ms:.3f}")
+    # The device time of each of the superstep's phases: the kernels
+    # launched while its range was open on the host, from any thread (the
+    # autograd engine launches the backward's from its own).
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    phases = {e.name: [e.time_range.start, e.time_range.end, 0.0] for e in host
+              if getattr(e, "is_user_annotation", False) and e.name.startswith("superstep.")}
+    for e in host:
+        for span in phases.values():
+            if span[0] <= e.time_range.start < span[1]:
+                span[2] += sum(k.duration for k in e.kernels) / 1e3
+    for name, (lo, hi, device_ms) in sorted(phases.items(), key=lambda kv: kv[1][0]):
+        print(f"profile {what}: phase {name}: host span {(hi - lo) / 1e3:.3f} ms, device busy "
+              f"{device_ms:.3f} ms")
+    for ms, count, name in rows[:25]:
+        print(f"profile {what}: {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from depgan_tpu_torch import benchmarks
     from depgan_tpu_torch.config import ModelConfig
     from depgan_tpu_torch.ops import _cuda
     from depgan_tpu_torch.ops import conv_s2d as K
@@ -304,7 +818,7 @@ def main() -> int:
 
     # Phase 2: each kernel against its plain version.
     worst = check_kernels()
-    print(f"phase kernels: {2 * len(CASES)} checks passed")
+    print(f"phase kernels: {2 * len(SERVING_CASES + TRAINING_CASES)} checks passed")
 
     # Phase 3: the serving path, counting kernel launches.
     gan = ModelConfig(image_size=256, first_fm=32, n_input_channels=1)
@@ -312,16 +826,43 @@ def main() -> int:
     K.reset_launch_counts()
     gan_diff, fast, subjects = serve(gan, seed=0, n_subjects=N_SUBJECTS)
     uresnet_diff, _, _ = serve(uresnet, seed=1, n_subjects=1)
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    serving = K.launches()
     forwards = (N_SUBJECTS + 1) * N_REPEAT
-    for name, per in LAUNCHES_PER_FORWARD.items():
-        check(launches[name] == per * forwards,
-              f"{name} launched {launches[name]} times in {forwards} forwards")
+    for name in KERNELS:
+        want = LAUNCHES_PER_FORWARD.get(name, 0) * forwards
+        check(serving[name] == want, f"{name} launched {serving[name]} times in {forwards} "
+                                     f"serving forwards, expected {want}")
     print(f"phase serving: {forwards} forwards, max abs diff tanh {gan_diff:.4e}, "
-          f"softmax {uresnet_diff:.4e}, launches {launches}")
+          f"softmax {uresnet_diff:.4e}, launches {serving}")
 
-    # Phase 4: timing, for information.
-    times = time_kernels()
+    # Phases 4-6: the training path's correctness, float32.
+    check_backward()
+    print("phase backward: passed")
+    check_critic()
+    print("phase critic: passed")
+    check_superstep()
+    print("phase superstep: passed")
+
+    # Phase 7: timing, for information (TF32 stays off: the float32 weight
+    # gradients of the backward run in full float32).
+    bench = benchmarks.gan_step_bench(BATCH_TRAIN, D_ITERS, K_NOISE)
+    superstep = bench["launches"]
+    want = expected_superstep_launches(D_ITERS, K_NOISE)
+    check(superstep == want, f"superstep launches {superstep}, expected {want}")
+    print(f"time training on {smi}: gan_step_bench batch {BATCH_TRAIN}, D {D_ITERS}, "
+          f"k {K_NOISE}: {bench['ms_per_superstep']:.2f} ms per superstep (reps "
+          f"{', '.join(f'{r:.2f}' for r in bench['reps_ms'])}), peak memory "
+          f"{bench['peak_memory_gib']:.2f} GiB, errG {bench['errG']:.4f}, launches {superstep}")
+    run = benchmarks.gan_superstep(BATCH_TRAIN, D_ITERS, K_NOISE, seed=1)
+    run()
+    profile_once(run, "one superstep", bench["ms_per_superstep"])
+    training = replay(bench["shapes"], torch.bfloat16, f"superstep batch {BATCH_TRAIN}")
+    serving_shapes = {}
+    for name, label, problem in SERVING_CASES:
+        serving_shapes[name, (BATCH_SERVE, *problem)] = (
+            2 if problem[-1] == "film" else 1) if name == "conv3x3_s2d_fused" else 1
+    per_forward = replay(serving_shapes, torch.bfloat16, f"serving forward batch {BATCH_SERVE}")
+
     x, mask = subjects[0]
     fast.predict(x, mask)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -331,18 +872,22 @@ def main() -> int:
     end.record()
     end.synchronize()
     subject_ms = start.elapsed_time(end) / len(subjects)
-    slices_per_s = BATCH_SERVE * N_REPEAT / (subject_ms / 1e3)
     print(f"time serving on {smi}: {subject_ms:.2f} ms per {BATCH_SERVE}-slice subject "
-          f"x {N_REPEAT} repeats = {slices_per_s:.1f} slice-forwards/s, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_subject(fast, *subjects[0])
+          f"x {N_REPEAT} repeats = {BATCH_SERVE * N_REPEAT / (subject_ms / 1e3):.1f} "
+          f"slice-forwards/s, kernels {sum(t['ms'] for t in per_forward.values()):.3f} ms "
+          f"per forward")
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in LAUNCHES_PER_FORWARD
-    ]
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        timing, unit = ((training[name], "per superstep") if name in training
+                        else (per_forward[name], "per serving forward"))
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": serving[name] + superstep[name], "launches_serving": serving[name],
+            "launches_superstep": superstep[name], "max_abs_err": worst[name],
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": "bytes" if timing["bytes_ms"] >= timing["ops_ms"] else "operations",
+            "library_ms": timing["library_ms"], "unit": unit})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,26 +1,82 @@
-"""Configuration of the port's generator.
+"""Configuration of the port.
 
-The fields of ``depgan_tpu/config.py``'s ``ModelConfig`` that the serving
-path reads, with the same names and defaults (a test holds them equal). The
-port keeps its own copy so that it imports nothing of the JAX package.
+The fields of ``depgan_tpu/config.py``'s ``ModelConfig``, ``DataConfig`` and
+``GanTrainConfig`` that the port reads, with the same names, types and
+defaults (a test holds them equal). The port keeps its own copy so that it
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+# WMH thresholds: probability maps use 0.5, irregularity maps 0.178
+# (reference: DEP-GAN_PROB_IM_twoCritics_training_4fold.py:26-29).
+PM_THRESHOLD = 0.5
+IM_THRESHOLD = 0.178
+
+
+def _threshold_for(use_probability_map: bool) -> float:
+    return PM_THRESHOLD if use_probability_map else IM_THRESHOLD
+
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Generator architecture knobs (reference :34-45)."""
+    """Generator / critic architecture knobs (reference :34-45)."""
 
     image_size: int = 256
     noise_size: int = 32
     first_fm: int = 32  # feature maps of the first U-Net level
     n_input_channels: int = 1
     n_out: int = 1  # 1 (tanh DEM head) for GAN, 4 (softmax) for UResNet
-    # 'gan', 'uresnet' or 'none': where training applies dropout. Inference,
-    # the only path ported so far, applies none.
+    # 'gan', 'uresnet' or 'none': where training applies dropout. The ported
+    # paths (serving, and the GAN superstep with frozen BN) apply none.
     dropout_mode: str = "gan"
-    # Compute dtype of the plain generator's trunk. Params are always float32.
+    # Compute dtype of the trunk. Params are always float32.
     compute_dtype: str = "float32"
+    # Train through the fused s2d path (ops/fast_gen.FusedGenerator and
+    # ops/fast_critic.FusedCritic, the hand-written kernels) instead of the
+    # plain modules.
+    use_pallas: bool = False
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The data knob the trainer reads: which WMH threshold applies."""
+
+    # True: probability maps (threshold 0.5); False: irregularity maps (0.178).
+    use_probability_map: bool = True
+
+    @property
+    def wmh_threshold(self) -> float:
+        return _threshold_for(self.use_probability_map)
+
+
+@dataclass(frozen=True)
+class GanTrainConfig:
+    """Two-critic WGAN-GP training: the fields the superstep reads
+    (reference :34-50, :506-894)."""
+
+    batch_size: int = 16
+    d_iters: int = 5  # critic steps per generator step, reference :36
+    warmup_d_iters: int = 100  # reference :792-797
+    warmup_until: int = 25  # gen_iterations below which warm-up applies
+    warmup_every: int = 500  # gen_iterations % warmup_every == 0 re-warms
+    gp_weight: float = 10.0  # 'delta', reference :37
+    lr_d: float = 1e-4
+    lr_g: float = 1e-4
+    adam_b1: float = 0.0
+    adam_b2: float = 0.9
+    k_noise: int = 10  # best-of-k noise probe, reference :868
+    # L1(DEM) / volume-MSE / Dice-loss weights (reference :574-592).
+    l1_weight: float = 100.0
+    vol_weight: float = 100.0
+    dice_weight: float = 1.0
+    # 'hard' (reference-faithful, zero-gradient >= threshold) or 'soft'
+    # (sigmoid((x - t) / tau)) for the volume and Dice terms.
+    threshold_mode: str = "hard"
+    soft_threshold_tau: float = 0.02
+    # Only 'frozen' (Keras learning-phase 0: moving statistics, no dropout)
+    # is ported.
+    bn_mode: str = "frozen"
+    seed: int = 0

@@ -1,4 +1,5 @@
-// Implicit-GEMM engine shared by the serving path's four s2d kernels.
+// Implicit-GEMM engine shared by the s2d kernels of the serving and training
+// paths.
 //
 // Every kernel of the path is one GEMM whose rows are output positions
 // (b, y, x) of a padded space-to-depth plane (batch, n+2, n+2, co4) and whose
@@ -16,22 +17,32 @@
 //    level; row (b, y, x) reads input block (y/2+1, x/2+1), sub-pixel group
 //    2(y%2)+(x%2), so the 2x2 stride-2 transposed conv is one per-pixel
 //    matmul C -> 4O whose interleave is folded into the gather.
+//  - kGatherConv5x5 (conv5x5_s2d_fused): k = (tap, c) over 9 taps x 4C with
+//    tap = 3A+B; row (b, y, x) reads x[b, y+A, x+B, c] against w9[A, B, c]
+//    — the SAME 5x5 pixel conv as a dense 3x3-tap conv on the padded
+//    unshifted plane, with no group permutation. Its 4C may be 16, so a
+//    k-tile of 32 can span two taps; the gather cursor steps over them.
 //
 // Products accumulate in f32: tensor cores (nvcuda::wmma 16x16x16) for bf16,
 // CUDA-core FMAs for f32 (the exact indexing check). The epilogue adds the
-// f32 bias, applies relu or the FiLM site (x + relu(y*gamma + beta)), rounds
-// once to the storage type, and can also emit the 2x2 max-pool of the
-// rounded values: a pool window is the four channel groups of one s2d
-// position, so a block that owns all co4 columns pools from shared memory.
-// Every launch also writes the zero ring of its padded outputs.
+// f32 bias, applies relu, the FiLM site (x + relu(y*gamma + beta)) or
+// nothing (the backward's transposed convs), rounds once to the storage
+// type, and can also emit the 2x2 max-pool of the rounded values: a pool
+// window is the four channel groups of one s2d position, so a block that
+// owns all co4 columns pools from shared memory. Every launch also writes
+// the zero ring of its padded outputs.
 //
 // Operands reach shared memory through a 3-stage cp.async pipeline of
 // 16-byte copies (zero-filled past the edges), so the gather of k-tile t+2
-// overlaps the products of k-tile t. This needs C and 4Co to be multiples
-// of 8 and 16-byte aligned planes, which the wrappers check.
+// overlaps the products of k-tile t. This needs every gathered run of
+// channels (C for the 3x3 gathers and the deconv, 4C for the 5x5) and 4Co to
+// be whole 16-byte vectors, and 16-byte aligned planes, which the wrappers
+// check. Outputs of at most 64 channels take 256 x 64 block tiles, wider
+// ones 128 x 128 (64 x 256 for the pooled launch with 4Co = 256).
 //
-// Bound: at the path's shapes the GEMMs do ~300 FLOP per byte of their
-// planes, near the H100's bf16 ridge; this version has no wgmma or TMA, so
+// Bound: at the generator's shapes the GEMMs do ~300 FLOP per byte of their
+// planes, near the H100's bf16 ridge; the critic's 5x5 levels (K = 144 to
+// 1152, 4Co = 16 to 128) sit below it. This version has no wgmma or TMA, so
 // it stays well below both roofs (PERF.md).
 #pragma once
 
@@ -42,8 +53,8 @@
 
 namespace depgan {
 
-enum Gather : int { kGatherConv3x3 = 0, kGatherDeconv = 1 };
-enum Epilogue : int { kRelu = 0, kFilm = 1 };
+enum Gather : int { kGatherConv3x3 = 0, kGatherDeconv = 1, kGatherConv5x5 = 2 };
+enum Epilogue : int { kRelu = 0, kFilm = 1, kNone = 2 };
 enum PoolMode : int { kPoolNone = 0, kPoolPixel = 1, kPoolS2d = 2 };
 
 constexpr int kThreads = 256;  // 8 warps
@@ -90,7 +101,7 @@ struct Problem {
 template <typename T, int BN>
 struct Tile {
   static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte copy
-  static constexpr int BM = 16384 / BN;  // 128 x 128 or 64 x 256 outputs a block
+  static constexpr int BM = 16384 / BN;  // 256 x 64, 128 x 128 or 64 x 256 outputs a block
   static constexpr int LDA = kBK + 8;    // As[m][k]
   static constexpr int LDB = BN + 8;     // Bs[k][n]
   static constexpr int LDC = BN + 4;     // Cs[m][n], f32, aliases the stages
@@ -264,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
     a_goff[i] = 0;
     if (tid + i * kThreads < A_VECS && m < M) {
       const int b = (int)(m / nn_img), rem = (int)(m % nn_img), y = rem / n, x = rem % n;
-      if (pr.gather == kGatherConv3x3) {
+      if (pr.gather != kGatherDeconv) {  // the tap origin: padded (y, x)
         a_pix[i] = (b * pr.p_in + y) * pr.p_in + x;
       } else {
         a_pix[i] = (b * pr.p_in + y / 2 + 1) * pr.p_in + x / 2 + 1;
@@ -282,24 +293,30 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
   // Tiles are loaded in order, and a thread's k-offset inside a tile is the
   // same for all its vectors (kThreads is a multiple of VPR), so its gather
   // position advances tile to tile without divisions: a cursor over
-  // (operand, k, tap, dst group, channel).
+  // (operand, k, tap, unit, channel). A unit is one gathered channel run:
+  // a dst group of C channels for the 3x3 gather (4 to a tap), a whole tap
+  // of 4C channels for the 5x5 gather.
   static_assert(kThreads % VPR == 0, "a thread's vectors share one k-offset");
+  const bool conv5 = pr.gather == kGatherConv5x5;
   const int a_kv = (tid % VPR) * VEC;
   int cur_op = 0, cur_k = a_kv, cur_tap = 0, cur_d = 0, cur_ch = 0;
+  auto unit = [&](int o) { return conv5 ? pr.op[o].c4 : pr.op[o].c4 / 4; };
   auto cursor_start = [&](int o) {
-    const int c = pr.op[o].c4 / 4;
-    cur_op = o, cur_k = a_kv, cur_tap = 0, cur_d = a_kv / c, cur_ch = a_kv % c;
+    const int u = unit(o);
+    cur_op = o, cur_k = a_kv, cur_tap = 0, cur_d = a_kv / u, cur_ch = a_kv % u;
   };
   cursor_start(0);
 
   auto load_tile = [&](int t, int stage) {
     if (t == kt0) cursor_start(1);  // the whole block moves to operand 1 together
     const Operand<T>& op = cur_op ? pr.op[1] : pr.op[0];
-    const int c = op.c4 / 4, k0 = cur_k - a_kv;
+    const int c = unit(cur_op), k0 = cur_k - a_kv;
     int64_t off = cur_k;
     if (pr.gather == kGatherConv3x3) {
       const int dy = (cur_tap >> 1) + (cur_d >> 1), dx = (cur_tap & 1) + (cur_d & 1);
       off = ((int64_t)dy * pr.p_in + dx) * op.c4 + (3 - cur_d) * c + cur_ch;
+    } else if (conv5) {  // cur_d is the tap 3A+B
+      off = ((int64_t)(cur_d / 3) * pr.p_in + cur_d % 3) * op.c4 + cur_ch;
     }
     T* As = stages + stage * Tl::kStageElems;
     T* Bs = As + BM * LDA;
@@ -323,6 +340,8 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
       for (cur_ch += kBK; cur_ch >= c; cur_ch -= c) {
         if (++cur_d == 4) cur_d = 0, ++cur_tap;
       }
+    } else if (conv5) {
+      for (cur_ch += kBK; cur_ch >= c; cur_ch -= c) ++cur_d;
     }
   };
 
@@ -383,7 +402,7 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
     if (pr.epilogue == kRelu) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) v[j] = fmaxf(v[j], 0.f);
-    } else {  // FiLM site: trunk + relu(y * gamma + beta), trunk = the input
+    } else if (pr.epilogue == kFilm) {  // FiLM site: trunk + relu(y * gamma + beta), trunk = the input
       Pack t;
       t.u = *reinterpret_cast<const uint4*>(pr.op[0].x + row_trunk[r] + col);
       const int gb = row_gb[r] + col;
@@ -431,9 +450,13 @@ cudaError_t launch_tile(const Problem<T>& pr, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch(const Problem<T>& pr, cudaStream_t stream) {
   if (pr.batch <= 0 || pr.n <= 0 || pr.co4 <= 0 || pr.co4 % 8 != 0) return cudaErrorInvalidValue;
-  for (int o = 0; o < pr.n_ops; ++o)  // whole 16-byte vectors in every gather
-    if (pr.op[o].c4 % 32 != 0) return cudaErrorInvalidValue;
-  if (pr.pool == kPoolNone) return launch_tile<T, 128>(pr, stream);
+  // Whole 16-byte vectors in every gather: the gathered run (C, or 4C for
+  // the 5x5) a multiple of 8 elements.
+  const int run = pr.gather == kGatherConv5x5 ? 8 : 32;
+  for (int o = 0; o < pr.n_ops; ++o)
+    if (pr.op[o].c4 % run != 0) return cudaErrorInvalidValue;
+  if (pr.pool == kPoolNone)
+    return pr.co4 <= 64 ? launch_tile<T, 64>(pr, stream) : launch_tile<T, 128>(pr, stream);
   // The fused pool needs every output channel of a position in one block.
   if (pr.pool == kPoolS2d && pr.n % 2 != 0) return cudaErrorInvalidValue;
   if (pr.co4 <= 128) return launch_tile<T, 128>(pr, stream);

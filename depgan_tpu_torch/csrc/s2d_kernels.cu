@@ -1,16 +1,18 @@
-// The serving path's four s2d kernels for Hopper (sm_90a): the C entry points
-// over the implicit-GEMM engine of s2d_gemm.cuh. Each fills one Problem and
-// launches it; all four launch s2d_gemm<T, 128>, apart from the pooled conv
-// with 4Co = 256, which launches s2d_gemm<T, 256>.
+// The s2d GEMM kernels for Hopper (sm_90a): the C entry points over the
+// implicit-GEMM engine of s2d_gemm.cuh. Each fills one Problem and launches
+// it: s2d_gemm<T, 64> for outputs of at most 64 channels, s2d_gemm<T, 128>
+// otherwise, and s2d_gemm<T, 256> for the pooled conv with 4Co = 256.
 //
 // Replaces the Pallas kernels of depgan_tpu/ops/conv_s2d_pallas.py:
 //  - conv3x3_s2d_fused (:758, kernel _kernel :490): a 3x3 SAME conv on a
 //    padded s2d plane (batch, n+2, n+2, 4C) -> (batch, n+2, n+2, 4Co), with
-//    the epilogue relu(y + b) or the whole FiLM site x + relu((y+b)*g + beta).
-//    On the serving path at n = 128 (c4 32 or 128 -> 128) and n = 64 (128 or
-//    256 -> 256). The Pallas kernel staged the shifted taps once per plane in
-//    VMEM; here the tap gather is folded into the shared-memory load of each
-//    GEMM k-tile, so nothing is staged in device memory either.
+//    the epilogue relu(y + b), the whole FiLM site x + relu((y+b)*g + beta),
+//    or y + b ('none': the transposed convs of the training backward). On the
+//    serving path at n = 128 (c4 32 or 128 -> 128) and n = 64 (128 or
+//    256 -> 256); the backward adds the same shapes with c4 and 4Co swapped.
+//    The Pallas kernel staged the shifted taps once per plane in VMEM; here
+//    the tap gather is folded into the shared-memory load of each GEMM
+//    k-tile, so nothing is staged in device memory either.
 //  - conv3x3_s2d_fused_pool (:1043, kernel _kernel_pool :1022): the relu conv
 //    that also writes the 2x2 max-pool of its stored output, either as the
 //    next level's padded s2d plane or in the pixel domain. Its blocks own
@@ -30,6 +32,15 @@
 //    the H100's ~300 FLOP/B ridge, so its bound is the plane traffic. Each
 //    GEMM row is one output position whose gather picks the input group, so
 //    the sub-pixel interleave costs nothing.
+//  - conv5x5_s2d_fused (:1918 -> _conv5_impl :1940, kernel _kernel5 :1863):
+//    the critic's SAME 5x5 convs as 9 dense taps over the padded unshifted
+//    plane, relu or none (the transposed convs of the WGAN-GP input
+//    gradient). At image 256 the critic's levels are n = 128 (4C 16 or 64
+//    -> 64) and n = 64 (64 or 128 -> 128), and the transposes run 64 -> 16,
+//    64 -> 64, 128 -> 64 and 128 -> 128. K = 9 * 4C is 144 to 1152 and 4Co
+//    at most 128: about 40-140 FLOP per byte of bf16 planes, under the
+//    ridge, so these GEMMs are bound by their planes' traffic; 4Co <= 64
+//    takes 256 x 64 tiles so that a block's columns are not mostly padding.
 //
 // dtype: 0 = float32, 1 = bfloat16. Every entry point returns
 // cudaGetLastError() after its launch, or an error code for arguments the
@@ -66,13 +77,14 @@ using Elem = std::remove_pointer_t<decltype(P::out)>;
 
 }  // namespace
 
-// epilogue: 0 = relu, 1 = film. pool: 0 = none, 1 = pixel, 2 = s2d.
+// epilogue: 0 = relu, 1 = film, 2 = none. pool: 0 = none, 1 = pixel, 2 = s2d.
 extern "C" int depgan_conv3x3_s2d_fused(int dtype, const void* x, const void* w4,
                                         const void* bias, const void* gamma, const void* beta,
                                         void* out, void* pooled, int batch, int n, int c4,
                                         int co4, int epilogue, int pool, void* stream) {
   if (epilogue == kFilm && (c4 != co4 || gamma == nullptr || beta == nullptr))
     return cudaErrorInvalidValue;
+  if (epilogue != kRelu && epilogue != kFilm && epilogue != kNone) return cudaErrorInvalidValue;
   if (pool != kPoolNone && (epilogue != kRelu || pooled == nullptr)) return cudaErrorInvalidValue;
   return dispatch(dtype, stream, [&](auto& pr) {
     using T = Elem<std::remove_reference_t<decltype(pr)>>;
@@ -126,6 +138,28 @@ extern "C" int depgan_deconv_s2d(int dtype, const void* x, const void* w2, const
     pr.p_in = m + 2;
     pr.co4 = o4;
     pr.epilogue = kRelu;
+    pr.pool = kPoolNone;
+    pr.bias = static_cast<const float*>(bias);
+    pr.out = static_cast<T*>(out);
+  });
+}
+
+// w9: (3, 3, c4, co4) rows of the transformed 5x5 kernel. epilogue: 0 = relu,
+// 2 = none.
+extern "C" int depgan_conv5x5_s2d_fused(int dtype, const void* x, const void* w9,
+                                        const void* bias, void* out, int batch, int n, int c4,
+                                        int co4, int epilogue, void* stream) {
+  if (epilogue != kRelu && epilogue != kNone) return cudaErrorInvalidValue;
+  return dispatch(dtype, stream, [&](auto& pr) {
+    using T = Elem<std::remove_reference_t<decltype(pr)>>;
+    pr.op[0] = {static_cast<const T*>(x), static_cast<const T*>(w9), c4, 9 * c4};
+    pr.n_ops = 1;
+    pr.gather = kGatherConv5x5;
+    pr.batch = batch;
+    pr.n = n;
+    pr.p_in = n + 2;
+    pr.co4 = co4;
+    pr.epilogue = epilogue;
     pr.pool = kPoolNone;
     pr.bias = static_cast<const float*>(bias);
     pr.out = static_cast<T*>(out);

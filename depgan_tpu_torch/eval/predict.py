@@ -30,7 +30,7 @@ class EnsemblePredictor:
     """
 
     def __init__(self, model_cfg: ModelConfig, variables: dict, n_repeat: int = 10,
-                 seed: int = 0, fast: bool = False, device="cpu",
+                 seed: int = 0, fast: bool = False, device="cuda",
                  compute_dtype=torch.bfloat16):
         self.n_repeat = n_repeat
         self.noise_size = model_cfg.noise_size

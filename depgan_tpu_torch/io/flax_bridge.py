@@ -1,10 +1,11 @@
-"""Weights carried across: a Flax-layout variable tree onto an ``nn.Module``.
+"""Weights and training state carried across from Flax-layout trees.
 
-The tree is ``{"params": ..., "batch_stats": ...}``, nested dicts keyed by the
-reference Keras layer names with array leaves: what
-``depgan_tpu.models.init_generator`` returns, what ``io/h5_import.py`` fills
-from a Keras ``.h5``, and what ``models.init_generator`` here writes in
-numpy. The port's modules keep the Flax names and layouts, so parameter
+A variable tree is ``{"params": ..., "batch_stats": ...}``, nested dicts
+keyed by the reference Keras layer names with array leaves: what
+``depgan_tpu.models.init_generator`` and ``init_critic`` return, what
+``io/h5_import.py`` fills from a Keras ``.h5``, and what
+``models.init_generator`` and ``models.init_critic`` here write in numpy.
+The port's modules keep the Flax names and layouts, so parameter
 ``a.b.kernel`` is ``params["a"]["b"]["kernel"]`` and buffer ``a.b.mean`` is
 ``batch_stats["a"]["b"]["mean"]``.
 """
@@ -14,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from ..train.state import GanTrainState, make_adam
 
 
 def _tree_get(tree: dict, dotted: str):
@@ -59,3 +62,57 @@ def load_flax_variables(module: nn.Module, variables: dict) -> nn.Module:
                                  f"module expects {tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(value.astype(np.float32)))
     return module
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> {dotted name: leaf}."""
+    flat = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            flat.update(flatten_tree(value, f"{prefix}{key}."))
+        else:
+            flat[f"{prefix}{key}"] = value
+    return flat
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """{dotted name: leaf} -> nested dicts; inverse of ``flatten_tree``."""
+    tree: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def _tensors(tree: dict, device, requires_grad: bool = False) -> dict[str, torch.Tensor]:
+    return {name: torch.tensor(np.asarray(v), dtype=torch.float32, device=device,
+                               requires_grad=requires_grad)
+            for name, v in flatten_tree(tree).items()}
+
+
+def gan_train_state_from_trees(trees: dict, lr_g: float, lr_d: float, b1: float, b2: float,
+                               device="cuda") -> GanTrainState:
+    """The port's ``GanTrainState`` from the numpy trees of a JAX one.
+
+    ``trees`` holds ``g_params``, ``g_stats``, ``dy2_params`` and
+    ``ddem_params`` as Flax-layout trees, and ``g_opt``, ``dy2_opt`` and
+    ``ddem_opt`` as ``{"count": int, "mu": tree, "nu": tree}``: optax's
+    ``ScaleByAdamState`` of ``optax.adam``. Both sides can then start one
+    superstep from the same state.
+    """
+    def part(prefix, lr):
+        params = _tensors(trees[f"{prefix}_params"], device, requires_grad=True)
+        opt = trees[f"{prefix}_opt"]
+        adam = make_adam(params, lr, b1, b2, int(opt["count"]),
+                         _tensors(opt["mu"], device), _tensors(opt["nu"], device))
+        return params, adam
+
+    g_params, g_opt = part("g", lr_g)
+    dy2_params, dy2_opt = part("dy2", lr_d)
+    ddem_params, ddem_opt = part("ddem", lr_d)
+    return GanTrainState(g_params=g_params, g_stats=_tensors(trees["g_stats"], device),
+                         g_opt=g_opt, dy2_params=dy2_params, dy2_opt=dy2_opt,
+                         ddem_params=ddem_params, ddem_opt=ddem_opt)

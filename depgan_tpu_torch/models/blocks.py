@@ -12,8 +12,9 @@ variable tree maps onto the module by a plain key walk
   epsilon 1e-3 (Keras; Keras' momentum 0.99 is torch's ``momentum=0.01``).
 
 Tensors are channels-last (NHWC), as in the JAX package. These modules are
-the inference forward: BatchNorm reads its running statistics and Dropout is
-the identity. The training forward arrives with the trainer port.
+the forward of serving and of the GAN graphs, which train with frozen
+BatchNorm (Keras learning-phase 0): BatchNorm reads its running statistics
+and Dropout is the identity.
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ import torch.nn.functional as F
 from torch import nn
 
 KERAS_BN_EPS = 1e-3
+
+
+def conv2d_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
+    """SAME 2-D convolution of an NHWC tensor with an HWIO kernel (odd
+    size). NHWC -> an NCHW view with channels-last strides: no copy, and
+    the result permutes back to NHWC as a view too."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=w.shape[0] // 2)
+    return y.permute(0, 2, 3, 1)
 
 
 class Conv(nn.Module):
@@ -35,12 +44,7 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # NHWC -> an NCHW view with channels-last strides: no copy, and the
-        # result permutes back to NHWC as a view too.
-        w = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, self.bias.to(x.dtype),
-                     padding=self.kernel.shape[0] // 2)
-        return y.permute(0, 2, 3, 1)
+        return conv2d_same(x, self.kernel.to(x.dtype), self.bias.to(x.dtype))
 
 
 class Dense(nn.Module):

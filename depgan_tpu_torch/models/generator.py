@@ -30,7 +30,8 @@ DECODER = (("p3", "gen_10", "gen_11", 3, "de_gen_9"),
 
 
 class GenUNet2D(nn.Module):
-    """U-Net generator with auxiliary-noise FiLM modulation, inference only.
+    """U-Net generator with auxiliary-noise FiLM modulation: the forward of
+    the serving path and of the GAN graphs (frozen BatchNorm, no dropout).
 
     ``forward(x, z)`` with x (B, H, W, C_in) and z (B, noise_size, 1) returns
     (B, H, W, n_out) float32. The trunk runs in ``cfg.compute_dtype``;
@@ -96,12 +97,21 @@ def _glorot_uniform(rng: np.random.Generator, shape) -> np.ndarray:
 
 def _he_normal(rng: np.random.Generator, shape) -> np.ndarray:
     """Flax ``he_normal``: a normal truncated at two standard deviations,
-    rescaled to variance 2 / fan_in."""
+    rescaled to variance 2 / fan_in, fan_in = prod(shape[:-1])."""
     z = rng.standard_normal(shape)
     while (bad := np.abs(z) > 2.0).any():
         z[bad] = rng.standard_normal(int(bad.sum()))
+    fan_in = int(np.prod(shape[:-1]))
     # 0.8796... is the standard deviation of a unit normal truncated at +-2.
-    return (z * np.sqrt(2.0 / shape[0]) / 0.87962566103423978).astype(np.float32)
+    return (z * np.sqrt(2.0 / fan_in) / 0.87962566103423978).astype(np.float32)
+
+
+def _put(tree: dict, dotted: str, value) -> None:
+    """Sets ``tree[a][b]...[leaf] = value`` for the name 'a.b...leaf'."""
+    *path, leaf = dotted.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
 
 
 def init_generator(cfg: ModelConfig, seed: int = 0) -> dict:
@@ -117,14 +127,6 @@ def init_generator(cfg: ModelConfig, seed: int = 0) -> dict:
     module = GenUNet2D(cfg, device="meta")
     owners = dict(module.named_modules())
     variables: dict = {"params": {}, "batch_stats": {}}
-
-    def put(collection, name, value):
-        *path, leaf = name.split(".")
-        node = variables[collection]
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = value
-
     for name, p in module.named_parameters():
         shape = tuple(p.shape)
         owner_name, leaf = name.rsplit(".", 1)
@@ -136,8 +138,8 @@ def init_generator(cfg: ModelConfig, seed: int = 0) -> dict:
             value = np.ones(shape, np.float32)
         else:
             value = np.zeros(shape, np.float32)
-        put("params", name, value)
+        _put(variables["params"], name, value)
     for name, buf in module.named_buffers():
         fill = 1.0 if name.endswith(".var") else 0.0
-        put("batch_stats", name, np.full(tuple(buf.shape), fill, np.float32))
+        _put(variables["batch_stats"], name, np.full(tuple(buf.shape), fill, np.float32))
     return variables

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all at once, and the objects are linked into
 one shared library under ``build/depgan_tpu_torch/`` of the checkout, named by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the library already built. The library has a plain C
@@ -24,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "depgan_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -35,6 +36,11 @@ _SIGNATURES = {
     "depgan_conv3x3_s2d_fused2": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, x, w2, bias, out, batch, m, c4, o4, stream
     "depgan_deconv_s2d": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, x, w9, bias, out, batch, n, c4, co4, epilogue, stream
+    "depgan_conv5x5_s2d_fused": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, out, batch, n, c4, stream
+    "depgan_pool_s2d": [_I, _P, _P, _I, _I, _I, _P],
+    "depgan_pool_to_s2d": [_I, _P, _P, _I, _I, _I, _P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,15 +72,7 @@ def library() -> ctypes.CDLL:
     """Builds the kernels if needed, loads them and declares their types."""
     so = library_path()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        _build(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -82,6 +80,34 @@ def library() -> ctypes.CDLL:
     lib.depgan_cuda_error_string.argtypes = [_I]
     lib.depgan_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _nvcc_all(commands: dict[str, list[str]]) -> None:
+    """Runs the nvcc commands all at once; raises with the output of every
+    one that failed."""
+    procs = {what: subprocess.Popen([_nvcc(), *NVCC_FLAGS, *args], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for what, args in commands.items()}
+    failed = []
+    for what, proc in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{what}: nvcc failed with code {proc.returncode}:\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _build(so: Path) -> None:
+    """Compiles each source to an object, all at once, then links them."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))}
+    _nvcc_all({src.name: ["-c", "-o", str(obj), str(src)] for src, obj in objs.items()})
+    tmp = so.with_name(f"{tag}.so.tmp")
+    _nvcc_all({"link": ["-shared", "-o", str(tmp), *map(str, objs.values())]})
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    for obj in objs.values():
+        obj.unlink()
 
 
 def check(code: int, what: str) -> None:

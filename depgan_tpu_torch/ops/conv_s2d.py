@@ -1,31 +1,71 @@
-"""Fused s2d convolutions of the serving path: layout helpers, the four
-kernel wrappers and their plain PyTorch versions.
+"""Fused s2d convolutions and pools: layout helpers, the kernel wrappers,
+their plain PyTorch versions, and the autograd rules of the training path.
 
-Counterpart of the serving subset of ``depgan_tpu/ops/conv_s2d_pallas.py``.
-Activations live in the *padded unshifted s2d* layout ``(B, N+2, N+2, 4C)``:
-block (i, j) holds pixels (2i+p-2, 2j+q-2) of the image in sub-pixel channel
-order (p, q, c), and the 1-block border ring is zero, which gives the SAME
-padding of the next conv for free.
+Counterpart of ``depgan_tpu/ops/conv_s2d_pallas.py``. Activations live in the
+*padded unshifted s2d* layout ``(B, N+2, N+2, 4C)``: block (i, j) holds
+pixels (2i+p-2, 2j+q-2) of the image in sub-pixel channel order (p, q, c),
+and the 1-block border ring is zero, which gives the SAME padding of the
+next conv for free.
 
-Each kernel wrapper dispatches on the device of its input: a CPU tensor runs
-the plain version beside it (gathered taps and one f32 matmul, written from
-the definitions in the docstrings); a CUDA tensor launches the hand-written
-kernel of ``csrc/`` and counts the launch in the wrapper's ``launches``
-attribute; any other device raises. There is no fallback from the kernel to
-the plain version. Both versions take activations and weights in one dtype,
-bias, gamma and beta in float32, accumulate in float32 and round once.
+Three layers, as in the JAX package:
+
+- Plain versions (``*_plain``), written from the definitions: gathered taps
+  and one float32 matmul for the convs, a channel-group max for the pools.
+- Kernel dispatch (``_*_impl`` and ``conv3x3_s2d_fused_pool``): a CPU tensor
+  runs the plain version; a CUDA tensor launches the hand-written kernel of
+  ``csrc/`` and counts the launch in ``SHAPES``; any other device raises.
+  There is no fallback from the kernel to the plain version. Both versions
+  take activations and weights in one dtype, bias, gamma and beta in
+  float32, accumulate in float32 and round once.
+- The public ops (``conv3x3_s2d_fused``, ``conv3x3_s2d_fused2``,
+  ``deconv_s2d``, ``pool_s2d``, ``pool_to_s2d``, ``conv5x5_s2d_fused``):
+  ``torch.autograd.Function``s mirroring the JAX custom VJPs. The 3x3 convs
+  and the deconv are first-order only, as in JAX; the pools' backward is
+  plain torch and the 5x5 conv's backward goes through the op itself, so
+  both differentiate again (the WGAN-GP double backward).
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _cuda
-from .s2d_conv import s2d_unshifted
+from .s2d_conv import (
+    conv5x5_to_s2d_kernel,
+    conv5x5_to_s2d_kernel_adjoint,
+    d2s,
+    flip_transpose_w4,
+    flip_transpose_w5,
+    s2d_unshifted,
+)
 
-_EPILOGUES = {"relu": 0, "film": 1}
+_EPILOGUES = {"relu": 0, "film": 1, "none": 2}
 _POOLS = {"pixel": 1, "s2d": 2}
+
+# Kernel launches by (name, problem), counted where each wrapper launches its
+# kernel, the problem being the wrapper's shape arguments, so a run's
+# launches can be replayed and timed shape by shape. K1's 'none' epilogue
+# (the backward's transposed convs) counts under a name of its own.
+KERNEL_NAMES = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
+                "conv3x3_s2d_fused2", "deconv_s2d", "pool_to_s2d", "pool_s2d",
+                "conv5x5_s2d_fused")
+SHAPES: Counter = Counter()
+
+
+def launches() -> dict[str, int]:
+    """Kernel launches by name since the last reset."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for (name, _), count in SHAPES.items():
+        counts[name] += count
+    return counts
+
+
+def reset_launch_counts() -> None:
+    SHAPES.clear()
 
 
 def pad_s2d(y: torch.Tensor) -> torch.Tensor:
@@ -46,6 +86,22 @@ def entry_pack(x: torch.Tensor, c_pad: int = 8) -> torch.Tensor:
     p = h // 2 + 2
     grp = pad_s2d(s2d_unshifted(x)).reshape(b, p, p, 4, c_in)
     return F.pad(grp, (0, c_pad - c_in)).reshape(b, p, p, 4 * c_pad)
+
+
+def interior_mask(plane: torch.Tensor) -> torch.Tensor:
+    """(1, rows, cols, 1) 0/1 mask of a padded plane's interior, each bound
+    taken from its own dim."""
+    rows, cols = plane.shape[1], plane.shape[2]
+    r = torch.arange(rows, device=plane.device)
+    c = torch.arange(cols, device=plane.device)
+    inside = ((r >= 1) & (r <= rows - 2))[:, None] & ((c >= 1) & (c <= cols - 2))[None, :]
+    return inside.to(plane.dtype)[None, :, :, None]
+
+
+def zero_ring(g: torch.Tensor) -> torch.Tensor:
+    """A padded plane's cotangent with its border ring zeroed: the forward
+    writes constant zeros there, so they carry no gradient."""
+    return g * interior_mask(g)
 
 
 # --------------------------------------------------------------------------
@@ -71,18 +127,26 @@ def _taps(x_padded: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def _conv_f32(x_padded, w4) -> torch.Tensor:
-    """Interior of the s2d 3x3 conv without bias, float32 (B, n, n, 4Co)."""
-    return _taps(x_padded) @ w4.float().reshape(-1, w4.shape[-1])
+def _taps5(x_padded: torch.Tensor) -> torch.Tensor:
+    """Gathered taps of the dense 3x3-tap conv (the 5x5 pixel conv),
+    (B, n, n, 9*4C) float32 in the row order (A, B, c) of w9: tap (A, B)
+    reads block offset (A, B) of the padded plane."""
+    n = x_padded.shape[1] - 2
+    xf = x_padded.float()
+    return torch.cat([xf[:, a:a + n, b:b + n, :] for a in range(3) for b in range(3)], dim=-1)
+
+
+def _matmul_taps(taps: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return taps @ w.float().reshape(-1, w.shape[-1])
 
 
 def conv3x3_s2d_fused_plain(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu"):
-    """relu(conv + b), or x + relu((conv + b) * gamma + beta) for 'film';
-    padded s2d in and out."""
-    y = _conv_f32(x_padded, w4) + bias4.float()
+    """relu(conv + b), conv + b for 'none', or x + relu((conv + b) * gamma +
+    beta) for 'film'; padded s2d in and out."""
+    y = _matmul_taps(_taps(x_padded), w4) + bias4.float()
     if mode == "relu":
         y = torch.relu(y)
-    else:
+    elif mode == "film":
         trunk = unpad_s2d(x_padded).float()
         y = trunk + torch.relu(y * gamma4.float()[:, None, None, :]
                                + beta4.float()[:, None, None, :])
@@ -92,18 +156,24 @@ def conv3x3_s2d_fused_plain(x_padded, w4, bias4, gamma4=None, beta4=None, mode="
 def conv3x3_s2d_fused_pool_plain(x_padded, w4, bias4, pool="s2d"):
     """The relu conv and the 2x2 max-pool of its stored (rounded) output:
     the next level's padded s2d plane, or the pixel-domain pool."""
-    y = torch.relu(_conv_f32(x_padded, w4) + bias4.float()).to(x_padded.dtype)
-    b, n, _, co4 = y.shape
-    pooled = y.reshape(b, n, n, 4, co4 // 4).amax(dim=3)
-    if pool == "s2d":
-        pooled = pad_s2d(s2d_unshifted(pooled))
-    return pad_s2d(y), pooled
+    out = conv3x3_s2d_fused_plain(x_padded, w4, bias4)
+    return out, (pool_to_s2d_plain if pool == "s2d" else pool_s2d_plain)(out)
 
 
 def conv3x3_s2d_fused2_plain(x1_padded, x2_padded, w4_1, w4_2, bias4):
     """relu(conv(x1, W1) + conv(x2, W2) + b); padded s2d in and out."""
-    y = _conv_f32(x1_padded, w4_1) + _conv_f32(x2_padded, w4_2) + bias4.float()
+    y = (_matmul_taps(_taps(x1_padded), w4_1) + _matmul_taps(_taps(x2_padded), w4_2)
+         + bias4.float())
     return pad_s2d(torch.relu(y).to(x1_padded.dtype))
+
+
+def _deinterleave(plane: torch.Tensor) -> torch.Tensor:
+    """Finer-level padded plane (B, 2m+2, 2m+2, K) -> (B, m, m, 4, K), the
+    4 axis the sub-pixel group 2p+q of each coarse block."""
+    b, side, _, k = plane.shape
+    m = (side - 2) // 2
+    t = unpad_s2d(plane).reshape(b, m, 2, m, 2, k).permute(0, 1, 3, 2, 4, 5)
+    return t.reshape(b, m, m, 4, k)
 
 
 def deconv_s2d_plain(x_padded, w2, bias4):
@@ -116,8 +186,29 @@ def deconv_s2d_plain(x_padded, w2, bias4):
     return pad_s2d(y.reshape(b, 2 * m, 2 * m, o4).to(x_padded.dtype))
 
 
+def pool_s2d_plain(x_padded):
+    """Padded s2d (B, n+2, n+2, 4C) -> the pixel-domain 2x2 max-pool
+    (B, n, n, C): the max over the four sub-pixel groups."""
+    b, n, c4 = x_padded.shape[0], x_padded.shape[1] - 2, x_padded.shape[-1]
+    return unpad_s2d(x_padded).reshape(b, n, n, 4, c4 // 4).amax(dim=3)
+
+
+def pool_to_s2d_plain(x_padded):
+    """The 2x2 max-pool as the next level's padded s2d (B, n/2+2, n/2+2, 4C)."""
+    return pad_s2d(s2d_unshifted(pool_s2d_plain(x_padded)))
+
+
+def conv5x5_s2d_fused_plain(x_padded, w9, bias4, mode="relu"):
+    """relu(conv + b) or conv + b over the 9 dense taps; padded s2d in and
+    out, w9 (3, 3, 4C, 4Co) from ``conv5x5_to_s2d_kernel``."""
+    y = _matmul_taps(_taps5(x_padded), w9) + bias4.float()
+    if mode == "relu":
+        y = torch.relu(y)
+    return pad_s2d(y.to(x_padded.dtype))
+
+
 # --------------------------------------------------------------------------
-# Kernel wrappers.
+# Kernel dispatch.
 # --------------------------------------------------------------------------
 
 
@@ -138,6 +229,11 @@ def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
              f"{name}: expected float32 {shape}, got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_weight(name: str, w: torch.Tensor, shape: tuple, dtype) -> None:
+    _require(tuple(w.shape) == shape and w.dtype == dtype,
+             f"{name}: expected {dtype} {shape}, got {w.dtype} {tuple(w.shape)}")
+
+
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     """False for CPU tensors (plain version), True for CUDA tensors (kernel);
     raises for any other device, mixed devices, or what the kernel does not
@@ -156,24 +252,30 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def _check_kernel_widths(co4: int, *c4s: int) -> None:
-    """The kernels copy whole 16-byte vectors: 4C a multiple of 32 and 4Co a
-    multiple of 8."""
-    _require(all(c4 % 32 == 0 for c4 in c4s) and co4 % 8 == 0,
-             f"kernels take 4C multiple of 32 and 4Co multiple of 8, got 4C {c4s}, 4Co {co4}")
+def _check_kernel_widths(co4: int, *c4s: int, run: int = 32) -> None:
+    """The kernels copy whole 16-byte vectors: each gathered channel run a
+    multiple of 8 elements (4C a multiple of 32 for the 3x3 gathers and the
+    deconv, of 8 for the 5x5) and 4Co a multiple of 8."""
+    _require(all(c4 % run == 0 for c4 in c4s) and co4 % 8 == 0,
+             f"kernels take 4C multiple of {run} and 4Co multiple of 8, "
+             f"got 4C {c4s}, 4Co {co4}")
 
 
-def conv3x3_s2d_fused(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu"):
+def _launch(name: str, problem: tuple, entry: str, *args) -> None:
+    _cuda.check(getattr(_cuda.library(), entry)(*args), name)
+    SHAPES[name, problem] += 1
+
+
+def _conv3x3_s2d_impl(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu"):
     """Fused s2d 3x3 conv, padded s2d (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co).
 
     w4 (2, 2, 4C, 4Co) in the dtype of x; bias4 (4Co,) float32. ``mode``
-    'relu': relu(y + b); 'film': x + relu((y + b) * gamma4 + beta4) with
-    gamma4, beta4 (B, 4C) float32 and C == Co.
+    'relu': relu(y + b); 'none': y + b; 'film': x + relu((y + b) * gamma4 +
+    beta4) with gamma4, beta4 (B, 4C) float32 and C == Co.
     """
     b, n, c4 = _check_plane("conv3x3_s2d_fused", x_padded)
     co4 = w4.shape[-1]
-    _require(tuple(w4.shape) == (2, 2, c4, co4) and w4.dtype == x_padded.dtype,
-             f"w4: expected {x_padded.dtype} (2, 2, {c4}, 4Co), got {w4.dtype} {tuple(w4.shape)}")
+    _check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
     _check_f32("bias4", bias4, (co4,))
     _require(mode in _EPILOGUES, f"unknown mode {mode!r}")
     extra = ()
@@ -186,26 +288,27 @@ def conv3x3_s2d_fused(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu")
         return conv3x3_s2d_fused_plain(x_padded, w4, bias4, gamma4, beta4, mode)
     _check_kernel_widths(co4, c4)
     out = torch.empty((b, n + 2, n + 2, co4), dtype=x_padded.dtype, device=x_padded.device)
+    name = "conv3x3_s2d_fused[none]" if mode == "none" else "conv3x3_s2d_fused"
+    film = mode == "film"
     with torch.cuda.device(x_padded.device):
-        code = _cuda.library().depgan_conv3x3_s2d_fused(
-            _cuda.DTYPE_CODES[x_padded.dtype], x_padded.data_ptr(), w4.data_ptr(),
-            bias4.data_ptr(), *(t.data_ptr() if t is not None else None for t in (gamma4, beta4)),
-            out.data_ptr(), None, b, n, c4, co4, _EPILOGUES[mode], 0,
-            _cuda.stream(x_padded.device))
-    _cuda.check(code, "conv3x3_s2d_fused")
-    conv3x3_s2d_fused.launches += 1
+        _launch(name, (b, n, c4, co4, mode), "depgan_conv3x3_s2d_fused",
+                _cuda.DTYPE_CODES[x_padded.dtype],
+                x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(),
+                gamma4.data_ptr() if film else None, beta4.data_ptr() if film else None,
+                out.data_ptr(), None, b, n, c4, co4, _EPILOGUES[mode], 0,
+                _cuda.stream(x_padded.device))
     return out
 
 
 def conv3x3_s2d_fused_pool(x_padded, w4, bias4, pool="s2d"):
-    """The relu ``conv3x3_s2d_fused`` that also emits the 2x2 max-pool of its
-    stored output. Returns (out, pooled): pooled is the next level's padded
-    s2d (B, N/2+2, N/2+2, 4Co) for ``pool='s2d'`` or the pixel-domain pool
-    (B, N, N, Co) for ``'pixel'``. The kernel takes 4Co <= 256."""
+    """The relu 3x3 conv that also emits the 2x2 max-pool of its stored
+    output (serving only: no gradient, as in JAX). Returns (out, pooled):
+    pooled is the next level's padded s2d (B, N/2+2, N/2+2, 4Co) for
+    ``pool='s2d'`` or the pixel-domain pool (B, N, N, Co) for ``'pixel'``.
+    The kernel takes 4Co <= 256."""
     b, n, c4 = _check_plane("conv3x3_s2d_fused_pool", x_padded)
     co4 = w4.shape[-1]
-    _require(tuple(w4.shape) == (2, 2, c4, co4) and w4.dtype == x_padded.dtype,
-             f"w4: expected {x_padded.dtype} (2, 2, {c4}, 4Co), got {w4.dtype} {tuple(w4.shape)}")
+    _check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
     _check_f32("bias4", bias4, (co4,))
     _require(pool in _POOLS, f"unknown pool mode {pool!r}")
     _require(pool != "s2d" or n % 2 == 0, "pool='s2d' needs an even interior size")
@@ -220,16 +323,15 @@ def conv3x3_s2d_fused_pool(x_padded, w4, bias4, pool="s2d"):
     else:
         pooled = torch.empty((b, n, n, co4 // 4), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        code = _cuda.library().depgan_conv3x3_s2d_fused(
-            _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(),
-            None, None, out.data_ptr(), pooled.data_ptr(), b, n, c4, co4,
-            _EPILOGUES["relu"], _POOLS[pool], _cuda.stream(dev))
-    _cuda.check(code, "conv3x3_s2d_fused_pool")
-    conv3x3_s2d_fused_pool.launches += 1
+        _launch("conv3x3_s2d_fused_pool", (b, n, c4, co4, pool), "depgan_conv3x3_s2d_fused",
+                _cuda.DTYPE_CODES[dt],
+                x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(), None, None,
+                out.data_ptr(), pooled.data_ptr(), b, n, c4, co4, _EPILOGUES["relu"],
+                _POOLS[pool], _cuda.stream(dev))
     return out, pooled
 
 
-def conv3x3_s2d_fused2(x1_padded, x2_padded, w4_1, w4_2, bias4):
+def _conv2_impl(x1_padded, x2_padded, w4_1, w4_2, bias4):
     """relu(conv(x1, W1) + conv(x2, W2) + b): the decoder's first conv over
     concat(x1, x2) without the concat. x1 (B, N+2, N+2, 4C1), x2 (B, N+2,
     N+2, 4C2), w4_i (2, 2, 4Ci, 4Co) -> (B, N+2, N+2, 4Co)."""
@@ -237,10 +339,8 @@ def conv3x3_s2d_fused2(x1_padded, x2_padded, w4_1, w4_2, bias4):
     b2, n2, c4b = _check_plane("conv3x3_s2d_fused2 x2", x2_padded)
     _require((b2, n2) == (b, n), "x1 and x2 must share batch and plane size")
     co4 = w4_1.shape[-1]
-    for name, w, c4 in (("w4_1", w4_1, c4a), ("w4_2", w4_2, c4b)):
-        _require(tuple(w.shape) == (2, 2, c4, co4) and w.dtype == x1_padded.dtype,
-                 f"{name}: expected {x1_padded.dtype} (2, 2, {c4}, {co4}), "
-                 f"got {w.dtype} {tuple(w.shape)}")
+    _check_weight("w4_1", w4_1, (2, 2, c4a, co4), x1_padded.dtype)
+    _check_weight("w4_2", w4_2, (2, 2, c4b, co4), x1_padded.dtype)
     _require(x2_padded.dtype == x1_padded.dtype, "x1 and x2 must share a dtype")
     _check_f32("bias4", bias4, (co4,))
     if not _on_cuda(x1_padded, x2_padded, w4_1, w4_2, bias4):
@@ -249,23 +349,20 @@ def conv3x3_s2d_fused2(x1_padded, x2_padded, w4_1, w4_2, bias4):
     dev, dt = x1_padded.device, x1_padded.dtype
     out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        code = _cuda.library().depgan_conv3x3_s2d_fused2(
-            _cuda.DTYPE_CODES[dt], x1_padded.data_ptr(), x2_padded.data_ptr(),
-            w4_1.data_ptr(), w4_2.data_ptr(), bias4.data_ptr(), out.data_ptr(),
-            b, n, c4a, c4b, co4, _cuda.stream(dev))
-    _cuda.check(code, "conv3x3_s2d_fused2")
-    conv3x3_s2d_fused2.launches += 1
+        _launch("conv3x3_s2d_fused2", (b, n, c4a, c4b, co4), "depgan_conv3x3_s2d_fused2",
+                _cuda.DTYPE_CODES[dt],
+                x1_padded.data_ptr(), x2_padded.data_ptr(), w4_1.data_ptr(), w4_2.data_ptr(),
+                bias4.data_ptr(), out.data_ptr(), b, n, c4a, c4b, co4, _cuda.stream(dev))
     return out
 
 
-def deconv_s2d(x_padded, w2, bias4):
+def _deconv_impl(x_padded, w2, bias4):
     """Deconv2x2 + bias + relu from padded s2d (B, M+2, M+2, 4C) into the
     finer level's padded s2d (B, 2M+2, 2M+2, 4O); w2 (C, 4O) is the Keras
     kernel in matmul form, bias4 (4O,) float32."""
     b, m, c4 = _check_plane("deconv_s2d", x_padded)
     o4 = w2.shape[-1]
-    _require(tuple(w2.shape) == (c4 // 4, o4) and w2.dtype == x_padded.dtype,
-             f"w2: expected {x_padded.dtype} ({c4 // 4}, 4O), got {w2.dtype} {tuple(w2.shape)}")
+    _check_weight("w2", w2, (c4 // 4, o4), x_padded.dtype)
     _check_f32("bias4", bias4, (o4,))
     if not _on_cuda(x_padded, w2, bias4):
         return deconv_s2d_plain(x_padded, w2, bias4)
@@ -273,20 +370,280 @@ def deconv_s2d(x_padded, w2, bias4):
     dev, dt = x_padded.device, x_padded.dtype
     out = torch.empty((b, 2 * m + 2, 2 * m + 2, o4), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        code = _cuda.library().depgan_deconv_s2d(
-            _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w2.data_ptr(), bias4.data_ptr(),
-            out.data_ptr(), b, m, c4, o4, _cuda.stream(dev))
-    _cuda.check(code, "deconv_s2d")
-    deconv_s2d.launches += 1
+        _launch("deconv_s2d", (b, m, c4, o4), "depgan_deconv_s2d", _cuda.DTYPE_CODES[dt],
+                x_padded.data_ptr(), w2.data_ptr(), bias4.data_ptr(), out.data_ptr(),
+                b, m, c4, o4, _cuda.stream(dev))
     return out
 
 
-KERNELS = (conv3x3_s2d_fused, conv3x3_s2d_fused_pool, conv3x3_s2d_fused2, deconv_s2d)
+def _pool_impl(x_padded, to_s2d: bool):
+    """The 2x2 max-pool of a padded s2d plane: into the next level's padded
+    s2d plane (``to_s2d``) or into the pixel domain."""
+    name = "pool_to_s2d" if to_s2d else "pool_s2d"
+    b, n, c4 = _check_plane(name, x_padded)
+    _require(not to_s2d or n % 2 == 0, f"{name} needs an even interior size")
+    if not _on_cuda(x_padded):
+        return (pool_to_s2d_plain if to_s2d else pool_s2d_plain)(x_padded)
+    _require(c4 % 32 == 0, f"{name}: the kernel takes 4C multiple of 32, got {c4}")
+    dev, dt = x_padded.device, x_padded.dtype
+    shape = (b, n // 2 + 2, n // 2 + 2, c4) if to_s2d else (b, n, n, c4 // 4)
+    out = torch.empty(shape, dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, (b, n, c4), f"depgan_{name}", _cuda.DTYPE_CODES[dt], x_padded.data_ptr(),
+                out.data_ptr(), b, n, c4, _cuda.stream(dev))
+    return out
 
 
-def reset_launch_counts() -> None:
-    for kernel in KERNELS:
-        kernel.launches = 0
+def _conv5_impl(x_padded, w9, bias4, mode="relu"):
+    """Dense 3x3-tap s2d conv (the SAME 5x5 pixel conv), padded s2d
+    (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co). w9 (3, 3, 4C, 4Co) in the dtype
+    of x, bias4 (4Co,) float32; ``mode`` 'relu' or 'none'."""
+    b, n, c4 = _check_plane("conv5x5_s2d_fused", x_padded)
+    co4 = w9.shape[-1]
+    _check_weight("w9", w9, (3, 3, c4, co4), x_padded.dtype)
+    _check_f32("bias4", bias4, (co4,))
+    _require(mode in ("relu", "none"), f"unknown mode {mode!r}")
+    if not _on_cuda(x_padded, w9, bias4):
+        return conv5x5_s2d_fused_plain(x_padded, w9, bias4, mode)
+    _check_kernel_widths(co4, c4, run=8)
+    dev, dt = x_padded.device, x_padded.dtype
+    out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        _launch("conv5x5_s2d_fused", (b, n, c4, co4, mode), "depgan_conv5x5_s2d_fused",
+                _cuda.DTYPE_CODES[dt],
+                x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(), out.data_ptr(),
+                b, n, c4, co4, _EPILOGUES[mode], _cuda.stream(dev))
+    return out
 
 
-reset_launch_counts()
+# --------------------------------------------------------------------------
+# Autograd rules (the custom VJPs of conv_s2d_pallas.py).
+# --------------------------------------------------------------------------
+
+
+def _interior_f32(plane: torch.Tensor) -> torch.Tensor:
+    return unpad_s2d(plane).float()
+
+
+def _dw(taps: torch.Tensor, dpre: torch.Tensor, shape) -> torch.Tensor:
+    """Weight cotangent from gathered taps and the output cotangent: one
+    float32 matmul over every output position (the einsums of
+    ``_dw4_einsums`` / ``_conv5_bwd``)."""
+    dint = _interior_f32(dpre)
+    return (taps.reshape(-1, taps.shape[-1]).T @ dint.reshape(-1, dint.shape[-1])).reshape(shape)
+
+
+def _dbias(dpre: torch.Tensor) -> torch.Tensor:
+    return _interior_f32(dpre).sum((0, 1, 2))
+
+
+def _transposed_conv3x3(dpre, w4, c_in4):
+    """dX of a 3x3 s2d conv: the flip-transposed conv through the kernel in
+    'none' mode with zero bias (first-order only, as in JAX)."""
+    zeros = torch.zeros(c_in4, dtype=torch.float32, device=dpre.device)
+    return _conv3x3_s2d_impl(dpre, flip_transpose_w4(w4).contiguous(), zeros, mode="none")
+
+
+class _Conv3x3(torch.autograd.Function):
+    """``conv3x3_s2d_fused``'s rule (``_conv3x3_s2d_bwd``, :846-915)."""
+
+    @staticmethod
+    def forward(ctx, x_padded, w4, bias4, gamma4, beta4, mode):
+        out = _conv3x3_s2d_impl(x_padded, w4, bias4, gamma4, beta4, mode)
+        ctx.mode = mode
+        ctx.save_for_backward(x_padded, w4, bias4, gamma4, beta4, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w4, bias4, gamma4, beta4, out = ctx.saved_tensors
+        need_x, need_w, need_b, need_g, need_bt = ctx.needs_input_grad[:5]
+        g = zero_ring(g)
+        dx = dw4 = dbias = dgamma = dbeta = None
+        if ctx.mode == "film":
+            # The relu mask is (gamma * c0 + beta) > 0 with the pre-
+            # modulation conv c0 recomputed by one 'none' launch: differencing
+            # the rounded output (out - x) can flip it where the FiLM branch
+            # cancels against the residual trunk.
+            c0 = _conv3x3_s2d_impl(x, w4, bias4, mode="none").float()
+            gb, bb = gamma4[:, None, None, :], beta4[:, None, None, :]
+            gm = torch.where(c0 * gb + bb > 0, g.float(), 0.0)
+            dpre = (gm * gb).to(x.dtype)
+            if need_g:
+                dgamma = (gm * c0).sum((1, 2))
+            if need_bt:
+                dbeta = gm.sum((1, 2))
+        elif ctx.mode == "relu":
+            dpre = torch.where(out > 0, g, 0.0).to(x.dtype)
+        else:
+            dpre = g.to(x.dtype)
+        if need_x:
+            dx = _transposed_conv3x3(dpre, w4, x.shape[-1])
+            if ctx.mode == "film":
+                dx = dx + g  # the residual trunk
+            dx = dx.to(x.dtype)
+        if need_w:
+            dw4 = _dw(_taps(x), dpre, w4.shape).to(w4.dtype)
+        if need_b:
+            dbias = _dbias(dpre)
+        return dx, dw4, dbias, dgamma, dbeta, None
+
+
+def conv3x3_s2d_fused(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu"):
+    """Fused s2d 3x3 conv, padded s2d (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co),
+    differentiable to first order. Arguments as ``_conv3x3_s2d_impl``."""
+    return _Conv3x3.apply(x_padded, w4, bias4, gamma4, beta4, mode)
+
+
+class _Conv3x3Two(torch.autograd.Function):
+    """``conv3x3_s2d_fused2``'s rule (``_conv2_bwd``, :1369-1396): one relu
+    mask, two transposed convs, two weight cotangents."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, w4_1, w4_2, bias4):
+        out = _conv2_impl(x1, x2, w4_1, w4_2, bias4)
+        ctx.save_for_backward(x1, x2, w4_1, w4_2, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x1, x2, w4_1, w4_2, out = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dpre = torch.where(out > 0, zero_ring(g), 0.0).to(x1.dtype)
+        grads = [None] * 5
+        for i, (x, w4) in enumerate(((x1, w4_1), (x2, w4_2))):
+            if need[i]:
+                grads[i] = _transposed_conv3x3(dpre, w4, x.shape[-1]).to(x.dtype)
+            if need[2 + i]:
+                grads[2 + i] = _dw(_taps(x), dpre, w4.shape).to(w4.dtype)
+        if need[4]:
+            grads[4] = _dbias(dpre)
+        return tuple(grads)
+
+
+def conv3x3_s2d_fused2(x1_padded, x2_padded, w4_1, w4_2, bias4):
+    """relu(conv(x1, W1) + conv(x2, W2) + b), differentiable to first order.
+    Arguments as ``_conv2_impl``."""
+    return _Conv3x3Two.apply(x1_padded, x2_padded, w4_1, w4_2, bias4)
+
+
+class _Deconv(torch.autograd.Function):
+    """``deconv_s2d_pallas``'s rule: the backward of the plain deconv
+    (``_deconv_ref``, :381, :467-473); JAX has no backward kernel either."""
+
+    @staticmethod
+    def forward(ctx, x_padded, w2, bias4):
+        out = _deconv_impl(x_padded, w2, bias4)
+        ctx.save_for_backward(x_padded, w2, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w2, out = ctx.saved_tensors
+        b, mp, _, c4 = x.shape
+        m, c, o4 = mp - 2, c4 // 4, w2.shape[-1]
+        dpre = torch.where(_deinterleave(out) > 0, _deinterleave(g).float(), 0.0)
+        dx = dw2 = dbias = None
+        if ctx.needs_input_grad[0]:
+            dx = pad_s2d((dpre @ w2.float().T).reshape(b, m, m, c4)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            groups = _interior_f32(x).reshape(-1, c)
+            dw2 = (groups.T @ dpre.reshape(-1, o4)).to(w2.dtype)
+        if ctx.needs_input_grad[2]:
+            dbias = dpre.sum((0, 1, 2, 3))
+        return dx, dw2, dbias
+
+
+def deconv_s2d(x_padded, w2, bias4):
+    """Deconv2x2 + bias + relu into the finer padded s2d plane,
+    differentiable to first order. Arguments as ``_deconv_impl``."""
+    return _Deconv.apply(x_padded, w2, bias4)
+
+
+def pool_s2d_bwd(x_padded, g):
+    """VJP of ``pool_s2d`` (``_pool_ref`` :188-194 under ``jax.vjp``): the
+    cotangent of each window split evenly among its tied maxima, as JAX's
+    max reduction does. Plain torch, linear in ``g``, so it differentiates
+    again."""
+    b, n, c4 = x_padded.shape[0], x_padded.shape[1] - 2, x_padded.shape[-1]
+    inter = unpad_s2d(x_padded).reshape(b, n, n, 4, c4 // 4)
+    hit = (inter == inter.amax(dim=3, keepdim=True)).to(g.dtype)
+    share = g[:, :, :, None, :] / hit.sum(dim=3, keepdim=True)
+    return pad_s2d((hit * share).reshape(b, n, n, c4))
+
+
+def pool_to_s2d_bwd(x_padded, g):
+    """VJP of ``pool_to_s2d`` (``_pool_to_s2d_ref`` :300-317): the next
+    level's padded cotangent back to pixels, then ``pool_s2d_bwd``."""
+    return pool_s2d_bwd(x_padded, d2s(unpad_s2d(g)))
+
+
+class _Pool(torch.autograd.Function):
+    """The pools' rule: ``pool_s2d_bwd`` / ``pool_to_s2d_bwd``, whose plain
+    torch ops autograd differentiates again."""
+
+    @staticmethod
+    def forward(ctx, x_padded, to_s2d):
+        ctx.to_s2d = to_s2d
+        ctx.save_for_backward(x_padded)
+        return _pool_impl(x_padded, to_s2d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (pool_to_s2d_bwd if ctx.to_s2d else pool_s2d_bwd)(x, g), None
+
+
+def pool_s2d(x_padded):
+    """2x2 max-pool of a padded s2d plane (B, N+2, N+2, 4C) into the pixel
+    domain (B, N, N, C)."""
+    return _Pool.apply(x_padded, False)
+
+
+def pool_to_s2d(x_padded):
+    """2x2 max-pool of a padded s2d plane (B, N+2, N+2, 4C) into the next
+    level's padded s2d plane (B, N/2+2, N/2+2, 4C)."""
+    return _Pool.apply(x_padded, True)
+
+
+class _Conv5x5(torch.autograd.Function):
+    """``conv5x5_s2d_fused``'s rule (``_conv5_bwd``, :1993-2046). dX is this
+    op again on the flipped, io-swapped kernel, and dW is a matmul gathered
+    back through the transform's adjoint, so the backward differentiates
+    again (the WGAN-GP double backward)."""
+
+    @staticmethod
+    def forward(ctx, x_padded, w5, bias, mode):
+        w9, bias4 = conv5x5_to_s2d_kernel(w5, bias)
+        out = _conv5_impl(x_padded, w9.to(x_padded.dtype).contiguous(),
+                          bias4.float().contiguous(), mode)
+        ctx.mode = mode
+        ctx.save_for_backward(x_padded, w5, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w5, out = ctx.saved_tensors
+        g = zero_ring(g)
+        dpre = (torch.where(out > 0, g, 0.0) if ctx.mode == "relu" else g).to(x.dtype)
+        dx = dw5 = dbias = None
+        if ctx.needs_input_grad[0]:
+            zeros = torch.zeros(w5.shape[2], dtype=torch.float32, device=x.device)
+            dx = conv5x5_s2d_fused(dpre, flip_transpose_w5(w5), zeros, "none").to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw9 = _dw(_taps5(x), dpre, (3, 3, x.shape[-1], out.shape[-1]))
+            dw5 = conv5x5_to_s2d_kernel_adjoint(dw9).to(w5.dtype)
+        if ctx.needs_input_grad[2]:
+            dbias = _dbias(dpre).reshape(4, -1).sum(0)
+        return dx, dw5, dbias, None
+
+
+def conv5x5_s2d_fused(x_padded, w5, bias, mode="relu"):
+    """relu(conv5x5_SAME(x, w5) + b), or without the relu for 'none', in
+    padded s2d: (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co). Takes the live pixel
+    kernel w5 (5, 5, C, Co) and bias (Co,) and transforms them inside, so
+    its cotangents are the pixel kernel's. Differentiable twice over."""
+    return _Conv5x5.apply(x_padded, w5, bias, mode)

@@ -1,13 +1,14 @@
-"""FastGenerator — the serving forward of Gen_UNet2D.
+"""FusedGenerator and FastGenerator — the fused forward of Gen_UNet2D.
 
 Counterpart of ``depgan_tpu/ops/fast_gen.py`` in the configuration every
-serving caller of the JAX package uses: ``pallas_levels=(1, 2)`` with the
-fused encoder pools. Semantically ``GenUNet2D.forward``, restructured:
+caller of the JAX package uses: ``pallas_levels=(1, 2)``. Semantically
+``GenUNet2D.forward`` with frozen BatchNorm and no dropout, restructured:
 
 - BatchNorm folded into the conv, dense and deconv weights (``fold_bn``);
 - levels 1 and 2 (full and half resolution) run in padded s2d through the
   hand-written kernels of ``conv_s2d``: every conv with its bias/relu or
-  FiLM epilogue, the last encoder conv of each level with its 2x2 max-pool,
+  FiLM epilogue, the 2x2 max-pool after each encoder level (fused into the
+  last conv's kernel when serving, a pool kernel of its own when training),
   the decoder's first conv over (up, skip) without the concat, and the
   p2 -> p1 upsample;
 - level 3, the bottleneck and the p3 decoder stay in the pixel domain
@@ -15,6 +16,12 @@ fused encoder pools. Semantically ``GenUNet2D.forward``, restructured:
   one matmul;
 - the trunk computes in ``compute_dtype`` (bfloat16 on the card), the noise
   pathway, the FiLM vectors and the 1x1 head in float32.
+
+``FusedGenerator`` is the training form: ``build_weights`` is torch ops on
+the live parameter tensors, and every kernel of the forward is an autograd
+op, so the generator's own gradient flows through the fold, the transforms
+and the kernels' backward rules. ``FastGenerator`` is the serving form: the
+weights built once, the fused pools, no gradient.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..models.blocks import max_pool_2x2
+from ..models.blocks import conv2d_same, max_pool_2x2
 from ..models.film import site_suffix
 from . import s2d_conv as S
 from .conv_s2d import (
@@ -34,18 +41,14 @@ from .conv_s2d import (
     deconv_s2d,
     entry_pack,
     pad_s2d,
+    pool_s2d,
+    pool_to_s2d,
     unpad_s2d,
 )
 from .fold_bn import fold_batch_norms
 
 SITES_IN_ORDER = ("m1", "m2", "m3", "p4", "p3", "p2", "p1")
 KERNEL_LEVELS = (1, 2)  # levels that run in padded s2d through the kernels
-
-
-def _conv(x, w, b):
-    """SAME conv, NHWC input, HWIO kernel."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=w.shape[0] // 2)
-    return y.permute(0, 2, 3, 1) + b
 
 
 def _deconv_w2(kernel):
@@ -55,8 +58,12 @@ def _deconv_w2(kernel):
 
 
 def _to_tensors(tree, device):
+    """Float32 tensors of a tree of arrays or tensors; tensors keep their
+    autograd history."""
     if isinstance(tree, dict):
         return {k: _to_tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(tree), dtype=torch.float32, device=device)
 
 
@@ -64,10 +71,12 @@ class FusedGenerator:
     """The fused-forward spec: level layout plus ``build_weights``/``forward``.
 
     ``build_weights`` turns a Flax-layout variable tree (numpy arrays or
-    float32 tensors) into the flat dict ``forward`` consumes, and records the
-    column slices of each site's gamma/beta in the fused site-mods matmul.
-    Trunk weights come out in ``compute_dtype``, rounded once from float32;
-    the noise encoder, the kernels' biases and the head stay float32.
+    tensors, differentiably for tensors) into the flat dict ``forward``
+    consumes, and records the column slices of each site's gamma/beta in the
+    fused site-mods matmul. Trunk weights come out in ``compute_dtype``,
+    rounded once from float32; the noise encoder, the kernels' biases and
+    the head stay float32. ``fuse_pool`` (off here, on for serving) pools
+    each encoder level inside its last conv's kernel, which has no gradient.
     """
 
     entry_pad_cin = 8  # the entry conv's input channels are padded to this
@@ -81,6 +90,7 @@ class FusedGenerator:
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16):
         self.cfg = cfg
         self.dtype = compute_dtype
+        self.fuse_pool = False
         self._site_slices: dict[str, tuple[tuple[int, int], tuple[int, int]]] = {}
 
     # ------------------------------------------------------------- weights
@@ -162,13 +172,17 @@ class FusedGenerator:
                 for site, ((m0, m1), (a0, a1)) in self._site_slices.items()}
 
     def _kernel_block(self, W, x_padded, site, cin, cout, mods, pool):
-        """A level-1/2 encoder site in padded s2d: conv_in, FiLM, and conv_out
-        with its fused 2x2 max-pool. Returns (conv_out, pooled)."""
+        """A level-1/2 encoder site in padded s2d: conv_in, FiLM, conv_out
+        and its 2x2 max-pool ('s2d': the next level's padded plane, 'pixel':
+        the pixel domain). Returns (conv_out, pooled)."""
         gamma, beta = (S.tile_channel_params(v) for v in mods[site])
         h = conv3x3_s2d_fused(x_padded, W[f"{cin}/kernel"], W[f"{cin}/bias"])
         h = conv3x3_s2d_fused(h, W[f"noise_{site}/kernel"], W[f"noise_{site}/bias"],
                               gamma, beta, mode="film")
-        return conv3x3_s2d_fused_pool(h, W[f"{cout}/kernel"], W[f"{cout}/bias"], pool=pool)
+        if self.fuse_pool:
+            return conv3x3_s2d_fused_pool(h, W[f"{cout}/kernel"], W[f"{cout}/bias"], pool=pool)
+        h = conv3x3_s2d_fused(h, W[f"{cout}/kernel"], W[f"{cout}/bias"])
+        return h, (pool_to_s2d if pool == "s2d" else pool_s2d)(h)
 
     def _kernel_block2(self, W, up, skip, site, cin, cout, mods):
         """A level-1/2 decoder site in padded s2d: the two-operand entry conv
@@ -182,14 +196,15 @@ class FusedGenerator:
 
     def _pixel_block(self, W, x, site, cin, cout, mods):
         """A level-3/4 site in the pixel domain, convs in the compute dtype."""
-        def kb(name):
-            return W[f"{name}/kernel"], W[f"{name}/bias"]
-
         gamma, beta = (v.to(self.dtype) for v in mods[site])
-        h0 = torch.relu(_conv(x, *kb(cin)))
-        hn = _conv(h0, *kb(f"noise_{site}"))
+
+        def conv(h, name):
+            return conv2d_same(h, W[f"{name}/kernel"]) + W[f"{name}/bias"]
+
+        h0 = torch.relu(conv(x, cin))
+        hn = conv(h0, f"noise_{site}")
         s = h0 + torch.relu(hn * gamma[:, None, None, :] + beta[:, None, None, :])
-        return torch.relu(_conv(s, *kb(cout)))
+        return torch.relu(conv(s, cout))
 
     def forward(self, W, x, z):
         """x (B, H, W, C_in), z (B, noise_size, 1) -> (B, H, W, n_out) f32."""
@@ -236,11 +251,12 @@ class FusedGenerator:
 
 class FastGenerator(FusedGenerator):
     """Inference wrapper: builds the folded, transformed weights once on
-    ``device`` and exposes ``__call__(x, z)``."""
+    ``device`` and exposes ``__call__(x, z)`` with the fused pools."""
 
     def __init__(self, cfg: ModelConfig, variables: dict, compute_dtype=torch.bfloat16,
-                 device=None):
+                 device="cuda"):
         super().__init__(cfg, compute_dtype)
+        self.fuse_pool = True
         self.weights = self.build_weights(variables, device)
 
     @torch.no_grad()

@@ -16,10 +16,12 @@ import pytest
 import torch
 
 from depgan_tpu_torch.config import ModelConfig
-from depgan_tpu_torch.io.flax_bridge import load_flax_variables
-from depgan_tpu_torch.models import GenUNet2D, init_generator
+from depgan_tpu_torch.io.flax_bridge import flatten_tree, load_flax_variables, unflatten_tree
+from depgan_tpu_torch.models import DisC2DFCN1, GenUNet2D, init_critic, init_generator
 from depgan_tpu_torch.ops import conv_s2d as K
-from depgan_tpu_torch.ops.fast_gen import FastGenerator
+from depgan_tpu_torch.ops import s2d_conv as S
+from depgan_tpu_torch.ops.fast_critic import FusedCritic
+from depgan_tpu_torch.ops.fast_gen import FastGenerator, FusedGenerator
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -28,10 +30,16 @@ CASES = {
     "relu_ragged_n": ("fused", dict(b=2, n=12, c4=32, co4=40)),
     "relu_two_column_blocks": ("fused", dict(b=3, n=16, c4=128, co4=256)),
     "film": ("fused", dict(b=2, n=10, c4=64, co4=64, film=True)),
-    "pool_s2d_256": ("pool", dict(b=2, n=10, c4=32, co4=256, pool="s2d")),
-    "pool_pixel_odd_n": ("pool", dict(b=2, n=9, c4=32, co4=128, pool="pixel")),
+    "pool_s2d_256": ("fused", dict(b=2, n=10, c4=32, co4=256, pool="s2d")),
+    "pool_pixel_odd_n": ("fused", dict(b=2, n=9, c4=32, co4=128, pool="pixel")),
     "fused2": ("fused2", dict(b=2, n=12, c4=96, c4b=32, co4=64)),
     "deconv_ragged_k": ("deconv", dict(b=2, n=12, c4=32, co4=64)),
+    "none_narrow_out": ("fused", dict(b=2, n=12, c4=64, co4=32, mode="none")),
+    "conv5_entry_16": ("conv5", dict(b=2, n=12, c4=16, co4=64, mode="relu")),
+    "conv5_none_to_16": ("conv5", dict(b=2, n=10, c4=64, co4=16, mode="none")),
+    "conv5_two_column_blocks": ("conv5", dict(b=2, n=8, c4=24, co4=136, mode="relu")),
+    "pool_s2d_kernel": ("pool", dict(b=2, n=10, c4=64, to_s2d=False)),
+    "pool_to_s2d_kernel": ("pool", dict(b=3, n=12, c4=32, to_s2d=True)),
 }
 
 
@@ -46,6 +54,7 @@ def cuda():
 
 
 def _case(kind, a, dtype, device, seed=0):
+    """(launch counter name, kernel, plain version, inputs, keyword args)."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, std=1.0, mean=0.0):
@@ -54,25 +63,37 @@ def _case(kind, a, dtype, device, seed=0):
     def plane(n, c4):
         return K.pad_s2d(randn(a["b"], n, n, c4)).to(dtype)
 
+    if kind == "pool":
+        to_s2d = a["to_s2d"]
+        name = "pool_to_s2d" if to_s2d else "pool_s2d"
+        return (name, lambda x: K._pool_impl(x, to_s2d),
+                K.pool_to_s2d_plain if to_s2d else K.pool_s2d_plain, (plane(a["n"], a["c4"]),), {})
     bias = randn(a["co4"], std=0.1)
+    if kind == "conv5":
+        w9 = randn(3, 3, a["c4"], a["co4"], std=(9 * a["c4"]) ** -0.5).to(dtype)
+        return ("conv5x5_s2d_fused", K._conv5_impl, K.conv5x5_s2d_fused_plain,
+                (plane(a["n"], a["c4"]), w9, bias), {"mode": a["mode"]})
     if kind == "deconv":
         x = plane(a["n"] // 2, a["c4"])
         w2 = randn(a["c4"] // 4, a["co4"], std=0.3).to(dtype)
-        return K.deconv_s2d, K.deconv_s2d_plain, (x, w2, bias), {}
+        return "deconv_s2d", K._deconv_impl, K.deconv_s2d_plain, (x, w2, bias), {}
     x = plane(a["n"], a["c4"])
     w4 = randn(2, 2, a["c4"], a["co4"], std=(4 * a["c4"]) ** -0.5).to(dtype)
     if kind == "fused2":
         w4b = randn(2, 2, a["c4b"], a["co4"], std=(4 * a["c4b"]) ** -0.5).to(dtype)
-        return (K.conv3x3_s2d_fused2, K.conv3x3_s2d_fused2_plain,
+        return ("conv3x3_s2d_fused2", K._conv2_impl, K.conv3x3_s2d_fused2_plain,
                 (x, plane(a["n"], a["c4b"]), w4, w4b, bias), {})
-    if kind == "pool":
-        return (K.conv3x3_s2d_fused_pool, K.conv3x3_s2d_fused_pool_plain, (x, w4, bias),
-                {"pool": a["pool"]})
+    if "pool" in a:
+        return ("conv3x3_s2d_fused_pool", K.conv3x3_s2d_fused_pool,
+                K.conv3x3_s2d_fused_pool_plain, (x, w4, bias), {"pool": a["pool"]})
     if a.get("film"):
         gamma, beta = randn(a["b"], a["c4"], std=0.3, mean=1.0), randn(a["b"], a["c4"], std=0.3)
-        return (K.conv3x3_s2d_fused, K.conv3x3_s2d_fused_plain, (x, w4, bias, gamma, beta),
-                {"mode": "film"})
-    return K.conv3x3_s2d_fused, K.conv3x3_s2d_fused_plain, (x, w4, bias), {}
+        return ("conv3x3_s2d_fused", K._conv3x3_s2d_impl, K.conv3x3_s2d_fused_plain,
+                (x, w4, bias, gamma, beta), {"mode": "film"})
+    mode = a.get("mode", "relu")
+    name = "conv3x3_s2d_fused[none]" if mode == "none" else "conv3x3_s2d_fused"
+    return (name, K._conv3x3_s2d_impl, K.conv3x3_s2d_fused_plain, (x, w4, bias),
+            {"mode": mode})
 
 
 @pytest.mark.gpu
@@ -81,18 +102,19 @@ def _case(kind, a, dtype, device, seed=0):
 def test_kernel_matches_plain(cuda, case, dtype):
     dt = getattr(torch, dtype)
     kind, args = CASES[case]
-    kernel, plain, inputs, kwargs = _case(kind, args, dt, cuda)
-    before = kernel.launches
+    name, kernel, plain, inputs, kwargs = _case(kind, args, dt, cuda)
+    before = K.launches()[name]
     out = kernel(*inputs, **kwargs)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert K.launches()[name] == before + 1
     ref = plain(*inputs, **kwargs)
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     for j, (o, r) in enumerate(zip(outs, refs)):
         assert o.dtype == r.dtype and o.shape == r.shape
         torch.testing.assert_close(o.float(), r.float(), atol=TOL[dt], rtol=TOL[dt])
-        if not (kind == "pool" and j == 1 and args["pool"] == "pixel"):
+        pixel = (kind == "pool" and not args["to_s2d"]) or (j == 1 and args.get("pool") == "pixel")
+        if not pixel:  # a padded plane
             n = o.shape[1] - 2
             ring = torch.ones(o.shape[1:3], dtype=torch.bool, device=cuda)
             ring[1:n + 1, 1:n + 1] = False
@@ -101,8 +123,8 @@ def test_kernel_matches_plain(cuda, case, dtype):
 
 @pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    _, _, (x, w4, bias), _ = _case("fused", CASES["relu_two_column_blocks"][1],
-                                   torch.float32, cuda)
+    _, _, _, (x, w4, bias), _ = _case("fused", CASES["relu_two_column_blocks"][1],
+                                      torch.float32, cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         K.conv3x3_s2d_fused(x.half(), w4.half(), bias)
     with pytest.raises(ValueError, match="contiguous"):
@@ -132,6 +154,140 @@ def test_fast_generator_on_cuda(cuda, n_out):
     K.reset_launch_counts()
     out32 = FastGenerator(cfg, variables, torch.float32, cuda)(x, z)
     out16 = FastGenerator(cfg, variables, torch.bfloat16, cuda)(x, z)
-    assert [k.launches for k in K.KERNELS] == [16, 4, 4, 2]
+    assert {k: v for k, v in K.launches().items() if v} == {
+        "conv3x3_s2d_fused": 16, "conv3x3_s2d_fused_pool": 4, "conv3x3_s2d_fused2": 4,
+        "deconv_s2d": 2}
     torch.testing.assert_close(out32, ref, atol=2e-4, rtol=0)
     assert float((out16 - ref).abs().max()) < 0.05
+
+
+def _grads(fn, inputs, need, seed):
+    """fn's output and its gradients wrt the inputs flagged in ``need``,
+    for one random cotangent."""
+    leaves = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, need)]
+    out = fn(*leaves)
+    r = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(seed),
+                    device=out.device)
+    grads = torch.autograd.grad((out.float() * r).sum(), [t for t in leaves if t.requires_grad])
+    return out, grads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["relu", "film", "fused2", "deconv", "pool", "pool_to_s2d",
+                                "conv5"])
+def test_backward_matches_autograd_of_plain(cuda, op):
+    """Each autograd rule on the card against autograd of the plain version
+    (float32; padded-plane gradients compared on the interior, where the
+    plain version also sees the ring)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * std
+
+    def plane(n, c4):
+        return K.pad_s2d(randn(2, n, n, c4))
+
+    def w4(ci, co):
+        return S.conv3x3_to_s2d_kernel(randn(3, 3, ci, co, std=0.2))[0].contiguous()
+
+    gamma, beta = 1.0 + randn(2, 32, std=0.3), randn(2, 32, std=0.3)
+    cases = {
+        "relu": (K.conv3x3_s2d_fused, K.conv3x3_s2d_fused_plain,
+                 (plane(8, 32), w4(8, 16), randn(64, std=0.1))),
+        "film": (lambda *a: K.conv3x3_s2d_fused(*a, mode="film"),
+                 lambda *a: K.conv3x3_s2d_fused_plain(*a, mode="film"),
+                 (plane(8, 32), w4(8, 8), randn(32, std=0.1), gamma, beta)),
+        "fused2": (K.conv3x3_s2d_fused2, K.conv3x3_s2d_fused2_plain,
+                   (plane(8, 64), plane(8, 32), w4(16, 8), w4(8, 8), randn(32, std=0.1))),
+        "deconv": (K.deconv_s2d, K.deconv_s2d_plain,
+                   (plane(4, 64), randn(16, 32, std=0.3), randn(32, std=0.1))),
+        "pool": (K.pool_s2d, K.pool_s2d_plain, (plane(8, 32),)),
+        "pool_to_s2d": (K.pool_to_s2d, K.pool_to_s2d_plain, (plane(8, 64),)),
+        "conv5": (K.conv5x5_s2d_fused,
+                  lambda x, w, b: K.conv5x5_s2d_fused_plain(x, *S.conv5x5_to_s2d_kernel(w, b)),
+                  (plane(8, 16), randn(5, 5, 4, 16, std=0.2), randn(16, std=0.1))),
+    }
+    fn, plain, inputs = cases[op]
+    need = [True] * len(inputs)
+    out, grads = _grads(fn, inputs, need, seed=2)
+    ref, ref_grads = _grads(plain, inputs, need, seed=2)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    for i, (a, b) in enumerate(zip(grads, ref_grads)):
+        if a.ndim == 4 and a.shape[1] == a.shape[2]:
+            a, b = K.unpad_s2d(a), K.unpad_s2d(b)
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4, msg=f"{op} input {i}")
+
+
+@pytest.mark.gpu
+def test_conv5_double_backward_on_cuda(cuda):
+    """grad of a function of K7's dX wrt w5 and x, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = K.pad_s2d(torch.randn(2, 8, 8, 16, generator=g, device=cuda))
+    w5 = torch.randn(5, 5, 4, 16, generator=g, device=cuda) * 0.2
+    b = torch.randn(16, generator=g, device=cuda) * 0.1
+    r = torch.randn(2, 10, 10, 64, generator=g, device=cuda)
+
+    def second(conv):
+        xx, ww = x.clone().requires_grad_(), w5.clone().requires_grad_()
+        (dx,) = torch.autograd.grad((conv(xx, ww, b) * r).sum(), xx, create_graph=True)
+        return torch.autograd.grad((K.unpad_s2d(dx) ** 2).sum(), ww)[0]
+
+    ours = second(K.conv5x5_s2d_fused)
+    ref = second(lambda x, w, b: K.conv5x5_s2d_fused_plain(x, *S.conv5x5_to_s2d_kernel(w, b)))
+    torch.testing.assert_close(ours, ref, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fused_generator_grad_on_cuda(cuda):
+    """The training form's parameter gradient against the plain module's."""
+    cfg = ModelConfig(image_size=32, first_fm=8)
+    variables = init_generator(cfg, seed=4)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(size=(2, 32, 32, 1)).astype(np.float32)).to(cuda)
+    z = torch.from_numpy(rng.normal(size=(2, 32, 1)).astype(np.float32)).to(cuda)
+    params = {k: torch.tensor(v, device=cuda, requires_grad=True)
+              for k, v in flatten_tree(variables["params"]).items()}
+    fused = FusedGenerator(cfg, torch.float32)
+    W = fused.build_weights({"params": unflatten_tree(params),
+                             "batch_stats": variables["batch_stats"]}, cuda)
+    K.reset_launch_counts()
+    out = fused.forward(W, x, z)
+    (out ** 2).sum().backward()
+    counts = K.launches()
+    assert counts["pool_to_s2d"] == 1 and counts["pool_s2d"] == 1
+    assert counts["conv3x3_s2d_fused[none]"] > 0
+    module = load_flax_variables(GenUNet2D(cfg, device=cuda), variables)
+    ref = module(x, z)
+    (ref ** 2).sum().backward()
+    torch.testing.assert_close(out, ref, atol=2e-4, rtol=0)
+    for name, p in module.named_parameters():
+        torch.testing.assert_close(params[name].grad, p.grad, atol=2e-3, rtol=1e-3, msg=name)
+
+
+@pytest.mark.gpu
+def test_fused_critic_gp_on_cuda(cuda):
+    """FusedCritic's score, input gradient and the GP's parameter gradient
+    on the card against the plain critic with double backward."""
+    cfg = ModelConfig(image_size=32, first_fm=8)
+    tree = flatten_tree(init_critic(cfg, seed=5)["params"])
+    params = {k: torch.tensor(v, device=cuda, requires_grad=True) for k, v in tree.items()}
+    x = torch.rand(2, 32, 32, 1, generator=torch.Generator(device=cuda).manual_seed(5),
+                   device=cuda)
+
+    def gp(grad):
+        return ((grad.square().sum((1, 2, 3)).sqrt() - 1) ** 2).mean()
+
+    score, grad = FusedCritic(cfg, torch.float32).score_and_input_grad(params, x)
+    gp(grad).backward()
+    module = load_flax_variables(DisC2DFCN1(cfg, device=cuda), init_critic(cfg, seed=5))
+    xx = x.clone().requires_grad_()
+    ref = module(xx)
+    (ref_grad,) = torch.autograd.grad(ref.sum(), xx, create_graph=True)
+    gp(ref_grad).backward()
+    torch.testing.assert_close(score, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(grad, ref_grad, atol=1e-4, rtol=1e-4)
+    for name, p in module.named_parameters():
+        # Biases reach the input gradient only through masks: no gradient
+        # or exact zeros, depending on the path autograd took.
+        ours, ref = (torch.zeros_like(p) if t is None else t for t in (params[name].grad, p.grad))
+        torch.testing.assert_close(ours, ref, atol=1e-3, rtol=1e-3, msg=name)
