@@ -31,13 +31,30 @@
    parameter within SUPERSTEP_LIMITS; the plain float32 superstep reported
    beside, and two controls that must fail every limit (the fused
    superstep in bfloat16, and without the gradient penalty).
-7. Timing, for information: ``benchmarks.gan_step_bench`` (bf16, batch 16,
+7. UResNet: ``UResNetTrainer.step`` through K8 (float32, full width,
+   ``dropout_mode='uresnet'``, batch 2, 3 steps, three seeds) against the
+   plain path in float64 from the same state with the same noises and
+   dropout masks: the losses, the updates, the changes of the BatchNorm
+   statistics and Adam's first moment within URESNET_LIMITS; the plain
+   float32 path reported beside, and K8 in bfloat16 as a control that must
+   fail every limit. Then ``fit`` for 2 epochs over a synthetic fold
+   (64 slices, batch 16, 8 validation slices): finite losses, exactly 7 K8
+   launches per training step and per validation chunk, no other kernel.
+8. Batch-BN superstep: the superstep with ``bn_mode='batch'`` through K8
+   (float32, full width, batch 2, D = 2, k = 2, three seeds) against the
+   plain float64 one with the same draws and dropout masks, within
+   BATCH_BN_LIMITS, a bfloat16 control that must fail them, and exactly
+   7 (2D + k + 1) K8 launches and no other kernel.
+9. Timing, for information: ``benchmarks.gan_step_bench`` (bf16, batch 16,
    D = 5, k = 10: ms per superstep, the least of 3 after a warm-up), its
    peak memory and exact launch counts, a profiler breakdown of one
-   superstep; each kernel's launches of that superstep replayed shape by
-   shape against its plain version and the library call that computes the
-   same function, beside the bound; the serving forward's kernels at batch
-   42 and ms per served subject.
+   superstep; ``benchmarks.uresnet_step_bench`` (batch 16, float32 and
+   bfloat16: ms per step, peak memory, a profiler breakdown); each
+   kernel's launches of those steps replayed shape by shape against its
+   plain version and the library call that computes the same function,
+   beside the bound, each timed on the device over launches captured in
+   a CUDA graph; the serving forward's kernels at batch 42 and ms per
+   served subject.
 
 Prints one JSON line with the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -65,6 +82,7 @@ N_SUBJECTS = 2
 N_REPEAT = 10
 BATCH_TRAIN, D_ITERS, K_NOISE = 16, 5, 10  # benchmarks.gan_step_bench's workload
 DEVICE = "cuda"
+FIT_SLICES, FIT_VAL, FIT_EPOCHS = 64, 8, 2  # phase 7's fold (batch BATCH_TRAIN)
 # Phases 5 and 6: seeds, and the limits against float64 (each set between
 # the float32 readings over the seeds and the controls', PERF.md section 6).
 CRITIC_SEEDS = (11, 21, 31)
@@ -82,10 +100,34 @@ SUPERSTEP_RUNS = {"float64": (False, "float64", True), "fused": (True, "float32"
                   "plain float32": (False, "float32", True),
                   "control bfloat16": (True, "bfloat16", True),
                   "control no GP": (True, "float32", False)}
+# Phases 7 and 8, limits set as phase 6's (PERF.md section 6).
+URESNET_SEEDS, URESNET_STEPS = (13, 23, 33), 3
+URESNET_LIMITS = {
+    "losses": 1e-4,           # relative, each step's loss
+    "updates": 5e-2,          # relative L2 of the parameter updates
+    "statistics": 1e-3,       # relative L2 of the BatchNorm statistics' changes
+    "first moment": 1e-1,     # relative L2 of Adam's first moment
+}
+BATCH_BN_SEEDS = (14, 24, 34)
+# Phase 6's readings but the largest single error, which cannot tell
+# float32 from the control here: at batch 2 the training BatchNorm of each
+# site's gamma/beta Dense normalizes two values to about +-1, so the
+# gradient of that Dense is a difference of near-equal terms, and float32
+# flips the sign of some saturated Adam steps (+-1.86 lr) there. The
+# limits are wider than phase 6's: batch mode runs the plain critic, whose
+# float32 GP double backward reads further off float64 than the fused
+# critic's hand-chained one (PERF.md section 6).
+BATCH_BN_LIMITS = {"losses": 5e-3, "updated scores": 5e-2, "updates": 1.5e-1,
+                   "gradient": 2e-1, "statistics": 1e-3}
+# UResNet and batch-BN superstep paths: tag -> (use_pallas, compute dtype)
+TRAIN_MODE_RUNS = {"float64": (False, "float64"), "k8": (True, "float32"),
+                   "plain float32": (False, "float32"), "control bfloat16": (True, "bfloat16")}
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
+PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores (K8's arithmetic)
 PALLAS = "depgan_tpu/ops/conv_s2d_pallas.py"
 GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d_gemm.cuh
 POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
+FILM_SRC = "depgan_tpu_torch/csrc/film_kernels.cu"
 
 # name -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -97,6 +139,7 @@ KERNELS = {
     "pool_to_s2d": (POOL_SRC, f"{PALLAS}:283"),
     "pool_s2d": (POOL_SRC, f"{PALLAS}:198"),
     "conv5x5_s2d_fused": (GEMM_SRC, f"{PALLAS}:1918"),
+    "film_residual": (FILM_SRC, "depgan_tpu/ops/film_pallas.py:58"),
 }
 LAUNCHES_PER_FORWARD = {"conv3x3_s2d_fused": 8, "conv3x3_s2d_fused_pool": 2,
                         "conv3x3_s2d_fused2": 2, "deconv_s2d": 1}
@@ -136,6 +179,11 @@ TRAINING_CASES = (
     ("conv5x5_s2d_fused", "L1a dX 128->64", (64, 128, 64, "none")),
     ("conv5x5_s2d_fused", "L1b dX 128->128", (64, 128, 128, "none")),
 )
+# K8 at the generator's seven FiLM sites, (H, W, C); the decoder's p3, p2
+# and p1 repeat the encoder's m3, m2 and m1.
+FILM_CASES = tuple(("film_residual", f"{site} {h}x{h}x{c}", (h, h, c)) for site, h, c in (
+    ("m1", 256, 32), ("m2", 128, 64), ("m3", 64, 96), ("p4", 32, 128),
+    ("p3", 64, 96), ("p2", 128, 64), ("p1", 256, 32)))
 
 
 def check(cond: bool, what: str) -> None:
@@ -174,7 +222,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         return sum(p.numel() // p.shape[1] ** 2 * (p.shape[1] - 2) ** 2 * p.element_size()
                    for p in planes)
 
-    case = {"padded": (True,), "flops": 0.0, "library": None}
+    case = {"padded": (True,), "flops": 0.0, "peak": PEAK_FLOPS, "library": None}
     if name.startswith("conv3x3_s2d_fused") and name != "conv3x3_s2d_fused2":
         _, n, c4, co4, mode = problem
         c, co = c4 // 4, co4 // 4
@@ -254,6 +302,21 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         case["flops"] = 2.0 * b * (2 * n) ** 2 * 25 * (c4 // 4) * (co4 // 4)
         case["bytes"] = (interior_bytes(args[0]) + nbytes(*args[1:])
                          + b * (n + 2) ** 2 * co4 * args[0].element_size())
+    elif name == "film_residual":
+        from depgan_tpu_torch.ops import film
+
+        _, hh, ww, c = problem
+        h, trunk = randn(b, hh, ww, c).to(dtype), randn(b, hh, ww, c).to(dtype)
+        gamma, beta = randn(b, c, std=0.5, mean=1.0).to(dtype), randn(b, c).to(dtype)
+        case["kernel"] = lambda: film._film_impl(h, gamma, beta, trunk)
+        case["plain"] = lambda: film.film_residual_plain(h, gamma, beta, trunk)
+        # Exact in float32 arithmetic, rounded once: the reference of both.
+        case["exact"] = lambda: film.film_residual_plain(h.float(), gamma.float(), beta.float(),
+                                                          trunk.float())
+        case["padded"] = (False,)
+        # A multiply, an add, a max and an add per element, in float32.
+        case["flops"], case["peak"] = 4.0 * h.numel(), PEAK_F32
+        case["bytes"] = nbytes(h, trunk, gamma, beta) + nbytes(h)
     else:
         raise ValueError(name)
     return case
@@ -275,10 +338,18 @@ def poison_allocator(shapes, dtype) -> None:
     del blocks
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each value of ``x`` (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
 def check_kernels() -> dict[str, float]:
-    """Phase 2; returns the largest abs error of each kernel."""
+    """Phase 2; returns the largest abs error of each kernel. K8's limits
+    are its own: float32 within 2e-6 of the plain version on unit-normal
+    data (one FMA's rounding), bfloat16 within one bf16 ulp of the plain
+    version computed in float32 and rounded once."""
     worst: dict[str, float] = {}
-    for i, (name, label, problem) in enumerate(SERVING_CASES + TRAINING_CASES):
+    for i, (name, label, problem) in enumerate(SERVING_CASES + TRAINING_CASES + FILM_CASES):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             case = make_case(name, (BATCH_CHECK, *problem), dtype, seed=i)
             ref = case["plain"]()
@@ -295,39 +366,59 @@ def check_kernels() -> dict[str, float]:
                 diff = (o.float() - r.float()).abs()
                 check(bool(torch.isfinite(o).all()), f"{name} {label}: non-finite output")
                 err = max(err, float(diff.max()))
-                limit = tol + (tol * r.float().abs() if dtype == torch.bfloat16 else 0.0)
+                if name == "film_residual" and dtype == torch.float32:
+                    limit, bound = 2e-6, "atol 2e-6"
+                elif name == "film_residual":
+                    exact = case["exact"]()
+                    diff = (o.float() - exact).abs()
+                    limit, bound = bf16_ulp(exact), "1 bf16 ulp of the float32 result"
+                else:
+                    limit = tol + (tol * r.float().abs() if dtype == torch.bfloat16 else 0.0)
+                    bound = f"atol {tol:g}" + (f", rtol {tol:g}" if dtype == torch.bfloat16
+                                               else "")
                 check(bool((diff <= limit).all()),
-                      f"{name} {label} {dtype}: max abs err {float(diff.max()):.3e}")
+                      f"{name} {label} {dtype}: max abs err {float(diff.max()):.3e} ({bound})")
                 if case["padded"][j]:
                     check(ring_is_zero(o), f"{name} {label}: ring of output {j} not zero")
             worst[name] = max(worst.get(name, 0.0), err)
-            bound = f"atol {tol:g}" + (f", rtol {tol:g}" if dtype == torch.bfloat16 else "")
+            rings = ", rings zero" if any(case["padded"]) else ""
             print(f"kernel {name} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
-                  f"({bound}), rings zero")
+                  f"({bound}){rings}")
     return worst
 
 
 def time_ms(fn, iters: int) -> float:
+    """Device ms of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph after a warm-up call, the graph replayed twice between CUDA
+    events, the faster replay over ``iters``. The graph runs the launches
+    back to back, so a launch shorter than the host's dispatch (the
+    wrapper's checks, ctypes, the allocation) times the kernel and not the
+    host. Launch counts move only while the graph is captured."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    best = float("inf")
+    for _ in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    graph.reset()
+    return best
 
 
 def time_case(case: dict) -> dict:
-    """Kernel, plain and library ms of one launch (best of two runs each,
-    interleaved), and its bound."""
-    k = min(time_ms(case["kernel"], 10), time_ms(case["kernel"], 10))
-    p = min(time_ms(case["plain"], 3), time_ms(case["plain"], 3))
-    lib = None
-    if case["library"] is not None:
-        lib = min(time_ms(case["library"], 10), time_ms(case["library"], 10))
-    t_ops, t_bytes = case["flops"] / PEAK_FLOPS * 1e3, case["bytes"] / PEAK_BYTES * 1e3
+    """Kernel, plain and library ms of one launch, and its bound."""
+    k = time_ms(case["kernel"], 10)
+    p = time_ms(case["plain"], 3)
+    lib = None if case["library"] is None else time_ms(case["library"], 10)
+    t_ops, t_bytes = case["flops"] / case["peak"] * 1e3, case["bytes"] / PEAK_BYTES * 1e3
     return {"ms": k, "plain_ms": p, "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
             "ops_ms": t_ops, "bytes_ms": t_bytes}
 
@@ -590,22 +681,41 @@ def tree_map(fn, tree):
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def superstep_errors(seed: int) -> tuple[dict, int]:
+def random_adam(rng: np.random.Generator, params: dict) -> dict:
+    """Adam moments that are not zero, so that the updates are not all
+    +-lr of a rounding-level gradient (biases before a BatchNorm)."""
+    return {"count": 3,
+            "mu": tree_map(lambda a: rng.normal(0, 1e-3, a.shape).astype(np.float32), params),
+            "nu": tree_map(lambda a: rng.uniform(1e-6, 1e-5, a.shape).astype(np.float32), params)}
+
+
+def change(tensors: dict, start: dict) -> torch.Tensor:
+    """All of ``tensors`` minus their numpy ``start`` values, as one
+    float64 vector."""
+    return torch.cat([(t.detach().double() - torch.as_tensor(start[k], device=t.device).double())
+                      .flatten() for k, t in tensors.items()])
+
+
+def superstep_errors(seed: int, runs: dict = SUPERSTEP_RUNS,
+                     bn_mode: str = "frozen") -> tuple[dict, int]:
     """One superstep (full width, batch 2, D = 2, k = 2) from one state
-    with the same draws, on each path of SUPERSTEP_RUNS, against the plain
+    with the same draws, on each path of ``runs``, against the plain
     float64 superstep. The state (from ``seed``) has non-trivial BatchNorm
-    and Adam moments that are not zero, so that the updates are not all
-    +-lr of a rounding-level gradient. Returns, for each path: each logged
-    loss's error relative to its own size, or to the critic scores' size
-    for errG_CY2 and errG_DEM (which sit near zero); for each network the
-    relative L2 of its updates, their largest abs error and the largest
-    update, and the relative L2 of Adam's first moment, which with b1 = 0
-    is the last step's gradient (linear in it, where the updates saturate
-    at ~1.86 lr); and the best noise index. Also the float64 best index."""
+    and Adam moments that are not zero. Returns, for each path, its
+    readings: each logged loss's error relative to its own size, or to the
+    critic scores' size for errG_CY2 and errG_DEM (which sit near zero);
+    for each network the relative L2 of its updates, their largest abs
+    error and the largest update, and the relative L2 of Adam's first
+    moment, which with b1 = 0 is the last step's gradient (linear in it,
+    where the updates saturate at ~1.86 lr); with batch BatchNorm the
+    relative L2 of the generator's statistics' changes; the best noise
+    index, the kernel launches, and the summary that the limits read.
+    Also the float64 best index."""
     from depgan_tpu_torch.config import DataConfig, GanTrainConfig, ModelConfig
     from depgan_tpu_torch.io.flax_bridge import flatten_tree as flatten
     from depgan_tpu_torch.io.flax_bridge import gan_train_state_from_trees
     from depgan_tpu_torch.models import init_critic
+    from depgan_tpu_torch.ops import conv_s2d as K
     from depgan_tpu_torch.train.gan_trainer import GEN_KEYS, GanTrainer
     from depgan_tpu_torch.train.state import adam_moments
 
@@ -617,60 +727,103 @@ def superstep_errors(seed: int) -> tuple[dict, int]:
         critic = init_critic(ModelConfig(image_size=IMAGE), seed=seed + 1 + i)
         trees[f"{name}_params"] = critic["params"]
     for name in ("g", "dy2", "ddem"):
-        trees[f"{name}_opt"] = {
-            "count": 3,
-            "mu": tree_map(lambda a: rng.normal(0, 1e-3, a.shape).astype(np.float32),
-                           trees[f"{name}_params"]),
-            "nu": tree_map(lambda a: rng.uniform(1e-6, 1e-5, a.shape).astype(np.float32),
-                           trees[f"{name}_params"])}
+        trees[f"{name}_opt"] = random_adam(rng, trees[f"{name}_params"])
     x_all, y_all = (torch.tensor(rng.uniform(size=(8, IMAGE, IMAGE, 1)), dtype=torch.float32,
                                  device=DEVICE) for _ in range(2))
     idx = np.array([[3, 5], [0, 7]])
-    runs = {}
-    for tag, (use_pallas, dtype, with_gp) in SUPERSTEP_RUNS.items():
+    results, launches = {}, {}
+    for tag, (use_pallas, dtype, with_gp) in runs.items():
         cfg = ModelConfig(image_size=IMAGE, first_fm=32, use_pallas=use_pallas,
                           compute_dtype=dtype)
         train_cfg = GanTrainConfig(batch_size=BATCH_GRAD, d_iters=d, warmup_d_iters=d,
-                                   k_noise=k)
+                                   k_noise=k, bn_mode=bn_mode)
         if not with_gp:
             train_cfg = dataclasses.replace(train_cfg, gp_weight=0.0)
         trainer = GanTrainer(cfg, train_cfg, DataConfig(), DEVICE)
         state = gan_train_state_from_trees(trees, train_cfg.lr_g, train_cfg.lr_d,
                                            train_cfg.adam_b1, train_cfg.adam_b2, DEVICE)
         draws = trainer.draw(d, BATCH_GRAD, torch.Generator(device=DEVICE).manual_seed(seed + 1))
-        runs[tag] = trainer.superstep(state, x_all, y_all, idx, d, draws=draws)
-    ref_state, ref = runs.pop("float64")
+        K.reset_launch_counts()
+        results[tag] = trainer.superstep(state, x_all, y_all, idx, d, draws=draws)
+        launches[tag] = K.launches()
+    ref_state, ref = results.pop("float64")
     crit = ("crit_y2_real", "crit_y2_fake", "crit_dem_real", "crit_dem_fake")
+    scores = ("errG_CY2", "errG_DEM")
     score_size = max(float(ref[key].abs().max()) for key in crit)
-    starts = {part: {n: torch.as_tensor(v, device=DEVICE)
-                     for n, v in flatten(trees[f"{part}_params"]).items()}
-              for part in ("g", "dy2", "ddem")}
+    starts = {part: flatten(trees[f"{part}_params"]) for part in ("g", "dy2", "ddem")}
+    lrs = {"g": GanTrainConfig().lr_g, "dy2": GanTrainConfig().lr_d, "ddem": GanTrainConfig().lr_d}
 
     def moment(state, part):
         params = getattr(state, f"{part}_params")
         return adam_moments(getattr(state, f"{part}_opt"), params)[1]
 
     out = {}
-    for tag, (state, metrics) in runs.items():
+    for tag, (state, metrics) in results.items():
         losses = {key: (metrics[key], ref[key]) for key in crit}
         losses.update({key: (metrics["gen"][key], ref["gen"][key]) for key in GEN_KEYS})
         loss_err = {}
         for key, (a, b) in losses.items():
-            floor = score_size if key in crit + ("errG_CY2", "errG_DEM") else 0.0
+            floor = score_size if key in crit + scores else 0.0
             loss_err[key] = float(((a - b).abs() / b.abs().clamp_min(max(floor, 1e-30))).max())
         parts = {}
         for part, start in starts.items():
             a, b = getattr(state, f"{part}_params"), getattr(ref_state, f"{part}_params")
             du = torch.cat([(a[n] - b[n]).detach().flatten() for n in a]).double()
-            up = torch.cat([(b[n].detach() - start[n]).flatten() for n in a]).double()
+            up = change(b, start)
             mu, ref_mu = moment(state, part), moment(ref_state, part)
             grad = rel_l2(torch.cat([mu[n].flatten() for n in mu]),
                           torch.cat([ref_mu[n].flatten() for n in mu]))
             parts[part] = {"updates": float(du.norm() / up.norm()),
                            "max_abs": float(du.abs().max()), "size": float(up.abs().max()),
                            "gradient": grad}
-        out[tag] = {"losses": loss_err, "parts": parts, "best": int(metrics["best_noise_idx"])}
+        summary = {
+            "losses": max(e for key, e in loss_err.items() if key not in scores),
+            "updated scores": max(loss_err[key] for key in scores),
+            "updates": max(p["updates"] for p in parts.values()),
+            "gradient": max(p["gradient"] for p in parts.values()),
+            "max abs / lr": max(p["max_abs"] / lrs[part] for part, p in parts.items())}
+        if bn_mode == "batch":
+            summary["statistics"] = rel_l2(change(state.g_stats, flatten(trees["g_stats"])),
+                                           change(ref_state.g_stats, flatten(trees["g_stats"])))
+        out[tag] = {"losses": loss_err, "parts": parts, "best": int(metrics["best_noise_idx"]),
+                    "launches": launches[tag], "summary": summary}
     return out, int(ref["best_noise_idx"])
+
+
+def hold_limits(what: str, summaries: list[dict], limits: dict, main: str) -> None:
+    """Checks, over the seeds' summaries (path -> reading -> value), that
+    the largest reading of path ``main`` stays within each limit and the
+    least reading of every control path (tag 'control ...') exceeds it, so
+    the check would see a fault of the size of a precision fault."""
+    worst = {key: max(s[main][key] for s in summaries) for key in limits}
+    controls = sorted({tag for s in summaries for tag in s if tag.startswith("control")})
+    beside = sorted({tag for s in summaries for tag in s} - {main, *controls})
+    least = {tag: {key: min(s[tag][key] for s in summaries) for key in limits}
+             for tag in controls}
+    print(f"{what}: against float64, the largest over seeds (the least for the controls): "
+          + "; ".join(f"{key}: {main} {worst[key]:.3e}, "
+                      + "".join(f"{tag} {max(s[tag][key] for s in summaries):.3e}, "
+                                for tag in beside)
+                      + ", ".join(f"{tag} {c[key]:.3e}" for tag, c in least.items())
+                      + f", limit {limit:g}" for key, limit in limits.items()))
+    for key, limit in limits.items():
+        check(worst[key] <= limit, f"{what}: {main} {key} {worst[key]:.3e} off float64, "
+                                   f"limit {limit:g}")
+        for tag, c in least.items():
+            check(c[key] > limit, f"{what}: {tag} {key} reads {c[key]:.3e}, within the limit "
+                                  f"{limit:g}")
+
+
+def print_superstep(what: str, seed: int, readings: dict, ref_best: int) -> None:
+    for tag, r in readings.items():
+        parts = "; ".join(f"{part} updates {p['updates']:.3e} (max abs {p['max_abs']:.3e} "
+                          f"of {p['size']:.3e}), gradient {p['gradient']:.3e}"
+                          for part, p in r["parts"].items())
+        losses = ", ".join(f"{key} {err:.2e}" for key, err in r["losses"].items())
+        stats = (f"; statistics {r['summary']['statistics']:.3e}"
+                 if "statistics" in r["summary"] else "")
+        print(f"{what} seed {seed} {tag} against float64: {parts}{stats}; losses {losses}; "
+              f"best noise {r['best']} (float64 {ref_best})")
 
 
 def check_superstep() -> None:
@@ -683,45 +836,149 @@ def check_superstep() -> None:
     limit sits between the float32 readings and the controls' (the fused
     superstep in bfloat16, and without the gradient penalty), and the
     controls must exceed every limit."""
-    from depgan_tpu_torch.config import GanTrainConfig
-
-    lrs = {"g": GanTrainConfig().lr_g, "dy2": GanTrainConfig().lr_d,
-           "ddem": GanTrainConfig().lr_d}
-    scores = ("errG_CY2", "errG_DEM")
-    worst = dict.fromkeys(SUPERSTEP_LIMITS, 0.0)
-    control = {tag: dict.fromkeys(SUPERSTEP_LIMITS, float("inf"))
-               for tag in SUPERSTEP_RUNS if tag.startswith("control")}
+    summaries = []
     for seed in SUPERSTEP_SEEDS:
         readings, ref_best = superstep_errors(seed)
-        for tag, r in readings.items():
-            parts = "; ".join(f"{part} updates {p['updates']:.3e} (max abs {p['max_abs']:.3e} "
-                              f"of {p['size']:.3e}), gradient {p['gradient']:.3e}"
-                              for part, p in r["parts"].items())
-            losses = ", ".join(f"{key} {err:.2e}" for key, err in r["losses"].items())
-            print(f"superstep seed {seed} {tag} against float64: {parts}; losses {losses}; "
-                  f"best noise {r['best']} (float64 {ref_best})")
-            summary = {
-                "losses": max(e for key, e in r["losses"].items() if key not in scores),
-                "updated scores": max(r["losses"][key] for key in scores),
-                "updates": max(p["updates"] for p in r["parts"].values()),
-                "gradient": max(p["gradient"] for p in r["parts"].values()),
-                "max abs / lr": max(p["max_abs"] / lrs[part] for part, p in r["parts"].items())}
-            for key, value in summary.items():
-                if tag in control:
-                    control[tag][key] = min(control[tag][key], value)
-                elif tag == "fused":
-                    worst[key] = max(worst[key], value)
+        print_superstep("superstep", seed, readings, ref_best)
+        summaries.append({tag: r["summary"] for tag, r in readings.items()})
         best = readings["fused"]["best"]
         check(best == ref_best, f"seed {seed} best noise index: fused {best}, float64 {ref_best}")
-    print("superstep: against float64, the largest over networks and seeds: "
-          + "; ".join(f"{key}: fused float32 {worst[key]:.3e}, "
-                      + ", ".join(f"{tag} {c[key]:.3e}" for tag, c in control.items())
-                      + f", limit {limit:g}" for key, limit in SUPERSTEP_LIMITS.items()))
-    for key, limit in SUPERSTEP_LIMITS.items():
-        check(worst[key] <= limit, f"fused superstep {key} {worst[key]:.3e} off float64, "
-                                   f"limit {limit:g}")
-        for tag, c in control.items():
-            check(c[key] > limit, f"{tag} {key} reads {c[key]:.3e}, within the limit {limit:g}")
+    hold_limits("superstep", summaries, SUPERSTEP_LIMITS, "fused")
+
+
+def check_batch_bn_superstep() -> dict[str, int]:
+    """Phase 8: the superstep with ``bn_mode='batch'`` through K8 against
+    the plain float64 one over BATCH_BN_SEEDS, as phase 6 holds the fused
+    one, with the generator's statistics' changes besides; exactly
+    7 (2D + k + 1) K8 launches and no other kernel on the K8 path (the
+    batch mode runs the plain modules, as JAX does). Returns the launches
+    of the first seed's K8 superstep."""
+    runs = {tag: (use_pallas, dtype, True) for tag, (use_pallas, dtype) in TRAIN_MODE_RUNS.items()}
+    summaries, main_launches = [], None
+    for seed in BATCH_BN_SEEDS:
+        readings, ref_best = superstep_errors(seed, runs, bn_mode="batch")
+        print_superstep("batch-BN superstep", seed, readings, ref_best)
+        summaries.append({tag: r["summary"] for tag, r in readings.items()})
+        best = readings["k8"]["best"]
+        check(best == ref_best, f"batch-BN seed {seed} best noise index: K8 {best}, "
+                                f"float64 {ref_best}")
+        launches = readings["k8"]["launches"]
+        want = {name: 7 * (2 * 2 + 2 + 1) if name == "film_residual" else 0 for name in launches}
+        check(launches == want, f"batch-BN superstep launches {launches}, expected {want}")
+        main_launches = main_launches or launches
+    hold_limits("batch-BN superstep", summaries, BATCH_BN_LIMITS, "k8")
+    return main_launches
+
+
+def uresnet_errors(seed: int) -> dict:
+    """URESNET_STEPS UResNet training steps (full width, batch 2,
+    ``dropout_mode='uresnet'``) from one state (from ``seed``: randomized
+    BatchNorm, Adam moments that are not zero) with the same batches,
+    noises and dropout masks, on each path of TRAIN_MODE_RUNS, against the
+    plain float64 path. Returns each path's readings: the largest relative
+    error of a step's loss, and the relative L2 of the parameter updates,
+    of the BatchNorm statistics' changes and of Adam's first moment."""
+    from depgan_tpu_torch.config import ModelConfig, UResNetTrainConfig
+    from depgan_tpu_torch.io.flax_bridge import flatten_tree, uresnet_train_state_from_trees
+    from depgan_tpu_torch.models.generator import dropout_masks
+    from depgan_tpu_torch.train.state import adam_moments
+    from depgan_tpu_torch.train.uresnet_trainer import UResNetTrainer
+
+    base = ModelConfig(image_size=IMAGE, first_fm=32, n_out=4, dropout_mode="uresnet")
+    train_cfg = UResNetTrainConfig(batch_size=BATCH_GRAD)
+    rng = np.random.default_rng(seed)
+    variables = randomized_variables(base, seed)
+    opt = random_adam(rng, variables["params"])
+    n = BATCH_GRAD * URESNET_STEPS
+    x = rng.uniform(size=(n, IMAGE, IMAGE, 1)).astype(np.float32)
+    x_all = torch.tensor(x, device=DEVICE)
+    y_all = torch.tensor(np.eye(4, dtype=np.float32)[np.digitize(x[..., 0], [0.3, 0.6, 0.85])],
+                         device=DEVICE)
+    noises = torch.tensor(rng.normal(size=(URESNET_STEPS, n, base.noise_size, 1)),
+                          dtype=torch.float32, device=DEVICE)
+    batches = rng.permutation(n).reshape(URESNET_STEPS, BATCH_GRAD)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    masks = [dropout_masks(base, BATCH_GRAD, gen, DEVICE) for _ in range(URESNET_STEPS)]
+    results = {}
+    for tag, (use_pallas, dtype) in TRAIN_MODE_RUNS.items():
+        cfg = dataclasses.replace(base, use_pallas=use_pallas, compute_dtype=dtype)
+        trainer = UResNetTrainer(cfg, train_cfg, DEVICE)
+        state = uresnet_train_state_from_trees(variables["params"], variables["batch_stats"],
+                                               opt, train_cfg.lr, DEVICE)
+        losses = []
+        for s in range(URESNET_STEPS):
+            state, loss = trainer.step(state, x_all, y_all, noises[s], batches[s],
+                                       dropout=masks[s])
+            losses.append(float(loss))
+        results[tag] = (state, losses)
+    ref_state, ref_losses = results.pop("float64")
+    start_p, start_s = flatten_tree(variables["params"]), flatten_tree(variables["batch_stats"])
+
+    def first_moment(state):
+        return torch.cat([m.flatten() for m in adam_moments(state.opt, state.params)[1].values()])
+
+    return {tag: {"losses": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+                  "updates": rel_l2(change(state.params, start_p),
+                                    change(ref_state.params, start_p)),
+                  "statistics": rel_l2(change(state.batch_stats, start_s),
+                                       change(ref_state.batch_stats, start_s)),
+                  "first moment": rel_l2(first_moment(state), first_moment(ref_state))}
+            for tag, (state, losses) in results.items()}
+
+
+def check_uresnet() -> None:
+    """Phase 7, the steps: the K8 path in float32 against the plain path in
+    float64 over URESNET_SEEDS (the plain float32 path reported beside),
+    each reading of URESNET_LIMITS within its limit, and the bfloat16
+    control beyond every limit."""
+    summaries = []
+    for seed in URESNET_SEEDS:
+        readings = uresnet_errors(seed)
+        for tag, r in readings.items():
+            print(f"uresnet seed {seed} {tag} against float64: "
+                  + ", ".join(f"{key} {v:.3e}" for key, v in r.items()))
+        summaries.append(readings)
+    hold_limits("uresnet", summaries, URESNET_LIMITS, "k8")
+
+
+def check_uresnet_fit() -> dict[str, int]:
+    """Phase 7, the epoch loop: ``UResNetTrainer.fit`` through K8 (float32,
+    full width) for FIT_EPOCHS epochs over a synthetic fold of FIT_SLICES
+    slices (labels thresholded from x), batch BATCH_TRAIN, FIT_VAL
+    validation slices: finite losses, the hooks called once per epoch, and
+    exactly 7 K8 launches per training step and per validation chunk, no
+    other kernel. Returns the launches."""
+    from depgan_tpu_torch.config import ModelConfig, UResNetTrainConfig
+    from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.train.uresnet_trainer import UResNetTrainer
+
+    cfg = ModelConfig(image_size=IMAGE, first_fm=32, n_out=4, dropout_mode="uresnet",
+                      use_pallas=True)
+    train_cfg = UResNetTrainConfig(batch_size=BATCH_TRAIN, seed=5)
+    trainer = UResNetTrainer(cfg, train_cfg, DEVICE)
+    state = trainer.init_state(5)
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(FIT_SLICES + FIT_VAL, IMAGE, IMAGE, 1)).astype(np.float32)
+    labels = np.digitize(x, [0.3, 0.6, 0.85]).astype(np.int32)
+    losses, val_losses, ckpts = [], [], []
+    K.reset_launch_counts()
+    state = trainer.fit(state, x[:FIT_SLICES], labels[:FIT_SLICES], x[FIT_SLICES:],
+                        labels[FIT_SLICES:], n_epochs=FIT_EPOCHS, loss_history=losses,
+                        val_loss_history=val_losses,
+                        checkpoint_fn=lambda s, e: ckpts.append(e))
+    launches = K.launches()
+    steps = FIT_EPOCHS * (FIT_SLICES // BATCH_TRAIN)
+    val_chunks = FIT_EPOCHS * -(-FIT_VAL // BATCH_TRAIN)
+    want = {name: 7 * (steps + val_chunks) if name == "film_residual" else 0 for name in launches}
+    check(launches == want, f"fit launches {launches}, expected {want}")
+    check(len(losses) == len(val_losses) == FIT_EPOCHS and np.isfinite(losses + val_losses).all(),
+          f"fit losses {losses}, validation {val_losses}")
+    check(state.epoch == FIT_EPOCHS and ckpts == list(range(FIT_EPOCHS)),
+          f"fit epochs {state.epoch}, checkpoints {ckpts}")
+    print(f"uresnet fit: {FIT_EPOCHS} epochs of {FIT_SLICES} slices, losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}, validation "
+          f"{', '.join(f'{v:.5f}' for v in val_losses)}, launches {launches}")
+    return launches
 
 
 def expected_superstep_launches(d: int, k: int) -> dict[str, int]:
@@ -737,14 +994,14 @@ def expected_superstep_launches(d: int, k: int) -> dict[str, int]:
     dX for each forward (the image needs none) and 4 for the chain: K7 26,
     K5 3, K6 3. The generator's step scores its output with both critics
     (8 K7, 2 K5, 2 K6) and takes their input gradient (8 K7); the probe
-    scores k outputs with both critics.
+    scores k outputs with both critics. Frozen BatchNorm runs no K8.
     """
     gen_fwd, steps, probe = 2 * d + k + 1, 2 * d, 2 * k
     return {"conv3x3_s2d_fused": 10 * gen_fwd, "conv3x3_s2d_fused[none]": 17,
             "conv3x3_s2d_fused_pool": 0, "conv3x3_s2d_fused2": 2 * gen_fwd,
             "deconv_s2d": gen_fwd, "pool_to_s2d": gen_fwd + 3 * steps + probe + 2,
             "pool_s2d": gen_fwd + 3 * steps + probe + 2,
-            "conv5x5_s2d_fused": 26 * steps + 4 * probe + 16}
+            "conv5x5_s2d_fused": 26 * steps + 4 * probe + 16, "film_residual": 0}
 
 
 def profile_once(fn, what: str, unprofiled_ms: float) -> None:
@@ -818,7 +1075,7 @@ def main() -> int:
 
     # Phase 2: each kernel against its plain version.
     worst = check_kernels()
-    print(f"phase kernels: {2 * len(SERVING_CASES + TRAINING_CASES)} checks passed")
+    print(f"phase kernels: {2 * len(SERVING_CASES + TRAINING_CASES + FILM_CASES)} checks passed")
 
     # Phase 3: the serving path, counting kernel launches.
     gan = ModelConfig(image_size=256, first_fm=32, n_input_channels=1)
@@ -843,7 +1100,14 @@ def main() -> int:
     check_superstep()
     print("phase superstep: passed")
 
-    # Phase 7: timing, for information (TF32 stays off: the float32 weight
+    # Phases 7-8: the training mode of the generator through K8.
+    check_uresnet()
+    uresnet_fit = check_uresnet_fit()
+    print("phase uresnet: passed")
+    batch_bn = check_batch_bn_superstep()
+    print("phase batch-BN superstep: passed")
+
+    # Phase 9: timing, for information (TF32 stays off: the float32 weight
     # gradients of the backward run in full float32).
     bench = benchmarks.gan_step_bench(BATCH_TRAIN, D_ITERS, K_NOISE)
     superstep = bench["launches"]
@@ -863,6 +1127,27 @@ def main() -> int:
             2 if problem[-1] == "film" else 1) if name == "conv3x3_s2d_fused" else 1
     per_forward = replay(serving_shapes, torch.bfloat16, f"serving forward batch {BATCH_SERVE}")
 
+    # The UResNet training step, float32 (train-uresnet's default) and bfloat16.
+    uresnet_steps, film = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        b = benchmarks.uresnet_step_bench(BATCH_TRAIN, IMAGE, name)
+        want = {k: 7 if k == "film_residual" else 0 for k in b["launches"]}
+        check(b["launches"] == want, f"uresnet step launches {b['launches']}, expected {want}")
+        print(f"time uresnet on {smi}: uresnet_step_bench batch {BATCH_TRAIN} {name}: "
+              f"{b['ms_per_step']:.2f} ms per step (reps "
+              f"{', '.join(f'{r:.2f}' for r in b['reps_ms'])}), peak memory "
+              f"{b['peak_memory_gib']:.2f} GiB, loss {b['loss']:.4f}")
+        uresnet_steps[name] = b
+        film[name] = replay(b["shapes"], dtype, f"uresnet step batch {BATCH_TRAIN} {name}")[
+            "film_residual"]
+        print(f"time uresnet {name}: K8 per training forward (7 launches): kernel "
+              f"{film[name]['ms']:.4f} ms, bound {film[name]['bound_ms']:.4f} ms, plain "
+              f"{film[name]['plain_ms']:.4f} ms, library none")
+    run = benchmarks.uresnet_step(BATCH_TRAIN, IMAGE, "float32", seed=1)
+    run()
+    profile_once(run, "one uresnet step float32", uresnet_steps["float32"]["ms_per_step"])
+
     x, mask = subjects[0]
     fast.predict(x, mask)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -879,12 +1164,18 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        timing, unit = ((training[name], "per superstep") if name in training
-                        else (per_forward[name], "per serving forward"))
+        if name == "film_residual":
+            timing, unit = film["float32"], f"per UResNet training step, batch {BATCH_TRAIN}, float32"
+        elif name in training:
+            timing, unit = training[name], "per superstep"
+        else:
+            timing, unit = per_forward[name], "per serving forward"
+        runs = {"serving": serving[name], "superstep": superstep[name],
+                "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serving[name] + superstep[name], "launches_serving": serving[name],
-            "launches_superstep": superstep[name], "max_abs_err": worst[name],
+            "launches": sum(runs.values()), **{f"launches_{k}": v for k, v in runs.items()},
+            "max_abs_err": worst[name],
             "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": "bytes" if timing["bytes_ms"] >= timing["ops_ms"] else "operations",
             "library_ms": timing["library_ms"], "unit": unit})

@@ -4,8 +4,12 @@ Counterpart of ``depgan_tpu/benchmarks.py``. ``gan_step_bench`` is the same
 workload as the JAX package's (``benchmarks.py:142-193``): one two-critic
 superstep (D critic updates per critic, the best-of-k probe, the generator
 update) of the DEP-GAN at ``image_size`` 256, ``first_fm`` 32, bf16 trunk,
-random weights and data from ``seed``, timed with CUDA events. It needs a
-card and refuses to run without one.
+random weights and data from ``seed``, timed with CUDA events.
+``uresnet_step_bench`` times one ``UResNetTrainer.step`` (the training
+forward through K8 at every FiLM site, the cross-entropy, the backward,
+Adam) of the DEP-UResNet at the same widths, batch 16, with
+``dropout_mode='uresnet'``, as ``train-uresnet --use-pallas`` runs it. Both
+need a card and refuse to run without one.
 """
 
 from __future__ import annotations
@@ -13,18 +17,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import DataConfig, GanTrainConfig, ModelConfig
+from .config import DataConfig, GanTrainConfig, ModelConfig, UResNetTrainConfig
+from .data.pipeline import EpochShuffler
 from .ops import conv_s2d
 from .train.gan_trainer import GanTrainer
+from .train.uresnet_trainer import UResNetTrainer
+
+
+def _cuda_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the benchmarks need a CUDA device")
+    return torch.device("cuda")
+
+
+def _time_reps(run, repeats: int) -> dict:
+    """ms of each of ``repeats`` calls of ``run`` after one warm-up call
+    (cuDNN and cuBLAS plans, the kernels' first launches), CUDA events
+    around each; the last call's result, kernel launches by name and by
+    problem shape, and the peak device memory of the timed calls."""
+    device = _cuda_device()
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reps = []
+    for _ in range(repeats):
+        conv_s2d.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = run()
+        end.record()
+        end.synchronize()
+        reps.append(start.elapsed_time(end))
+    return {"reps_ms": reps, "result": result,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            "launches": conv_s2d.launches(), "shapes": dict(conv_s2d.SHAPES)}
 
 
 def gan_superstep(batch: int = 16, d_iters: int = 5, k_noise: int = 10, image_size: int = 256,
                   use_pallas: bool = True, seed: int = 0):
     """A callable that runs one superstep of the benchmark's workload on
     the card and returns its metrics; each call continues the training."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the GAN benchmark needs a CUDA device")
-    device = torch.device("cuda")
+    device = _cuda_device()
     model_cfg = ModelConfig(image_size=image_size, first_fm=32, n_input_channels=1,
                             compute_dtype="bfloat16", use_pallas=use_pallas)
     train_cfg = GanTrainConfig(batch_size=batch, d_iters=d_iters, warmup_d_iters=d_iters,
@@ -47,21 +80,48 @@ def gan_step_bench(batch: int = 16, d_iters: int = 5, k_noise: int = 10, image_s
     """ms per superstep (the least of ``repeats`` after one warm-up
     superstep), with the last superstep's kernel launches by name and by
     problem shape, and the peak device memory of the timed supersteps."""
-    run = gan_superstep(batch, d_iters, k_noise, image_size, use_pallas, seed)
-    device = torch.device("cuda")
-    run()  # warm-up: cuDNN and cuBLAS plans, the kernels' first launches
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    reps = []
-    for _ in range(repeats):
-        conv_s2d.reset_launch_counts()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = run()
-        end.record()
-        end.synchronize()
-        reps.append(start.elapsed_time(end))
-    return {"ms_per_superstep": min(reps), "reps_ms": reps,
-            "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
-            "launches": conv_s2d.launches(), "shapes": dict(conv_s2d.SHAPES),
-            "errG": float(metrics["gen"]["errG"])}
+    t = _time_reps(gan_superstep(batch, d_iters, k_noise, image_size, use_pallas, seed), repeats)
+    return {"ms_per_superstep": min(t["reps_ms"]), "reps_ms": t["reps_ms"],
+            "peak_memory_gib": t["peak_memory_gib"], "launches": t["launches"],
+            "shapes": t["shapes"], "errG": float(t["result"]["gen"]["errG"])}
+
+
+def uresnet_step(batch: int = 16, image_size: int = 256, compute_dtype: str = "float32",
+                 seed: int = 0):
+    """A callable that runs one UResNet training step on the card and
+    returns its loss; each call continues the training over a synthetic
+    fold of 4 batches (slices uniform in [0, 1), labels thresholded from
+    them, made on the device), shuffled per epoch as ``fit`` does."""
+    device = _cuda_device()
+    model_cfg = ModelConfig(image_size=image_size, first_fm=32, n_out=4,
+                            dropout_mode="uresnet", compute_dtype=compute_dtype,
+                            use_pallas=True)
+    train_cfg = UResNetTrainConfig(batch_size=batch, seed=seed)
+    trainer = UResNetTrainer(model_cfg, train_cfg, device)
+    state = trainer.init_state(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = 4 * batch
+    x_all = torch.rand((n, image_size, image_size, 1), generator=gen, device=device)
+    labels = torch.bucketize(x_all[..., 0], torch.tensor([0.3, 0.6, 0.85], device=device))
+    y_all = torch.nn.functional.one_hot(labels, train_cfg.n_classes).float()
+    noise_all = torch.randn((n, model_cfg.noise_size, 1), generator=gen, device=device)
+    shuffler = EpochShuffler(n, batch, seed)
+    batches: list = []
+
+    def run():
+        if not batches:
+            batches.extend(shuffler.epoch())
+        return trainer.step(state, x_all, y_all, noise_all, batches.pop(), generator=gen)[1]
+
+    return run
+
+
+def uresnet_step_bench(batch: int = 16, image_size: int = 256, compute_dtype: str = "float32",
+                       seed: int = 0, repeats: int = 3) -> dict:
+    """ms per UResNet training step (the least of ``repeats`` after one
+    warm-up step), with the last step's kernel launches by name and by
+    problem shape, and the peak device memory of the timed steps."""
+    t = _time_reps(uresnet_step(batch, image_size, compute_dtype, seed), repeats)
+    return {"ms_per_step": min(t["reps_ms"]), "reps_ms": t["reps_ms"],
+            "peak_memory_gib": t["peak_memory_gib"], "launches": t["launches"],
+            "shapes": t["shapes"], "loss": float(t["result"])}

@@ -1,8 +1,8 @@
 """Configuration of the port.
 
-The fields of ``depgan_tpu/config.py``'s ``ModelConfig``, ``DataConfig`` and
-``GanTrainConfig`` that the port reads, with the same names, types and
-defaults (a test holds them equal). The port keeps its own copy so that it
+The fields of ``depgan_tpu/config.py``'s ``ModelConfig``, ``DataConfig``,
+``GanTrainConfig`` and ``UResNetTrainConfig`` that the port reads, with the
+same names, types and defaults (a test holds them equal). The port keeps its own copy so that it
 imports nothing of the JAX package.
 """
 
@@ -14,6 +14,10 @@ from dataclasses import dataclass
 # (reference: DEP-GAN_PROB_IM_twoCritics_training_4fold.py:26-29).
 PM_THRESHOLD = 0.5
 IM_THRESHOLD = 0.178
+
+# Values of the wmh_subtracted_coded label maps
+# (reference: README.md and DEP-UResNet-wNoises-training-4fold.py:454-459).
+N_CHANGE_CLASSES = 4  # 0=background, 1=shrink, 2=grow, 3=stable
 
 
 def _threshold_for(use_probability_map: bool) -> float:
@@ -29,9 +33,12 @@ class ModelConfig:
     first_fm: int = 32  # feature maps of the first U-Net level
     n_input_channels: int = 1
     n_out: int = 1  # 1 (tanh DEM head) for GAN, 4 (softmax) for UResNet
-    # 'gan', 'uresnet' or 'none': where training applies dropout. The ported
-    # paths (serving, and the GAN superstep with frozen BN) apply none.
+    # Where training (``GenUNet2D.forward(train=True)``) applies dropout:
+    # 'gan' at every site (reference :399-485), 'uresnet' only after the
+    # first decoder conv (DEP-UResNet-wNoises-training-4fold.py:388), 'none'
+    # nowhere. Serving and the frozen-BN GAN graphs apply none.
     dropout_mode: str = "gan"
+    dropout_rate: float = 0.25
     # Compute dtype of the trunk. Params are always float32.
     compute_dtype: str = "float32"
     # Train through the fused s2d path (ops/fast_gen.FusedGenerator and
@@ -76,7 +83,24 @@ class GanTrainConfig:
     # (sigmoid((x - t) / tau)) for the volume and Dice terms.
     threshold_mode: str = "hard"
     soft_threshold_tau: float = 0.02
-    # Only 'frozen' (Keras learning-phase 0: moving statistics, no dropout)
-    # is ported.
+    # 'frozen' (Keras learning-phase 0: moving statistics, no dropout; the
+    # fused path) or 'batch' (the generator's step uses batch statistics,
+    # updates them and applies dropout; the plain modules, with K8 at the
+    # FiLM sites under use_pallas).
     bn_mode: str = "frozen"
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class UResNetTrainConfig:
+    """Supervised trainer (DEP-UResNet-wNoises-training-4fold.py:17-27). The
+    JAX package's ``dispatch_chunk`` is left out: a TPU dispatch knob that
+    leaves the trajectory unchanged."""
+
+    batch_size: int = 16  # 'nb_samples'
+    n_epochs: int = 200
+    lr: float = 1e-4
+    n_classes: int = N_CHANGE_CLASSES
+    shuffle_each_epoch: bool = True
+    checkpoint_every: int = 1  # epochs (reference saves every epoch, :620-625)
     seed: int = 0

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..train.state import GanTrainState, make_adam
+from ..train.state import GanTrainState, UResNetTrainState, make_adam
 
 
 def _tree_get(tree: dict, dotted: str):
@@ -87,6 +87,12 @@ def unflatten_tree(flat: dict) -> dict:
     return tree
 
 
+def zeros_like_tree(tree: dict) -> dict:
+    """A tree of numpy zeros shaped like ``tree``: fresh Adam moments."""
+    return {k: zeros_like_tree(v) if isinstance(v, dict) else np.zeros_like(v)
+            for k, v in tree.items()}
+
+
 def _tensors(tree: dict, device, requires_grad: bool = False) -> dict[str, torch.Tensor]:
     return {name: torch.tensor(np.asarray(v), dtype=torch.float32, device=device,
                                requires_grad=requires_grad)
@@ -116,3 +122,15 @@ def gan_train_state_from_trees(trees: dict, lr_g: float, lr_d: float, b1: float,
     return GanTrainState(g_params=g_params, g_stats=_tensors(trees["g_stats"], device),
                          g_opt=g_opt, dy2_params=dy2_params, dy2_opt=dy2_opt,
                          ddem_params=ddem_params, ddem_opt=ddem_opt)
+
+
+def uresnet_train_state_from_trees(params: dict, batch_stats: dict, opt: dict, lr: float,
+                                   device="cuda") -> UResNetTrainState:
+    """The port's ``UResNetTrainState`` from the numpy trees of a JAX one:
+    Flax-layout ``params`` and ``batch_stats``, and ``opt`` as ``{"count":
+    int, "mu": tree, "nu": tree}``, the ``ScaleByAdamState`` of
+    ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8)."""
+    tensors = _tensors(params, device, requires_grad=True)
+    adam = make_adam(tensors, lr, 0.9, 0.999, int(opt["count"]), _tensors(opt["mu"], device),
+                     _tensors(opt["nu"], device))
+    return UResNetTrainState(params=tensors, batch_stats=_tensors(batch_stats, device), opt=adam)

@@ -41,6 +41,8 @@ _SIGNATURES = {
     # dtype, x, out, batch, n, c4, stream
     "depgan_pool_s2d": [_I, _P, _P, _I, _I, _I, _P],
     "depgan_pool_to_s2d": [_I, _P, _P, _I, _I, _I, _P],
+    # dtype, h, gamma, beta, trunk, out, batch, hw, c, stream
+    "depgan_film_residual": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

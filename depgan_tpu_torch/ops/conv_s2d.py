@@ -49,10 +49,11 @@ _POOLS = {"pixel": 1, "s2d": 2}
 # Kernel launches by (name, problem), counted where each wrapper launches its
 # kernel, the problem being the wrapper's shape arguments, so a run's
 # launches can be replayed and timed shape by shape. K1's 'none' epilogue
-# (the backward's transposed convs) counts under a name of its own.
+# (the backward's transposed convs) counts under a name of its own; K8
+# (``ops/film.py``) counts here too.
 KERNEL_NAMES = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
                 "conv3x3_s2d_fused2", "deconv_s2d", "pool_to_s2d", "pool_s2d",
-                "conv5x5_s2d_fused")
+                "conv5x5_s2d_fused", "film_residual")
 SHAPES: Counter = Counter()
 
 

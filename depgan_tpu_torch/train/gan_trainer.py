@@ -2,7 +2,7 @@
 
 Counterpart of ``depgan_tpu/train/gan_trainer.py`` (reference
 `...twoCritics_training_4fold.py:506-894`), its sequential superstep
-(:313-531) with frozen BatchNorm:
+(:313-531):
 
 - one gather of the superstep's (D, B) batches from the fold's data on the
   device;
@@ -16,11 +16,17 @@ Each of the four phases is a ``torch.profiler`` range
 (``superstep.critic_y2``, ``.critic_dem``, ``.probe``, ``.generator_step``),
 so a profile of a superstep splits its device time by phase.
 
-``model_cfg.use_pallas`` selects the fused path (``FusedGenerator`` and
-``FusedCritic`` through the hand-written kernels, the critic's input
-gradient hand-chained) or the plain one (``GenUNet2D`` and ``DisC2DFCN1``
-through ``torch.func.functional_call``, the input gradient by double
-backward).
+With ``bn_mode='frozen'`` (Keras learning-phase 0), ``model_cfg.use_pallas``
+selects the fused path (``FusedGenerator`` and ``FusedCritic`` through the
+hand-written kernels, the critic's input gradient hand-chained) or the
+plain one (``GenUNet2D`` and ``DisC2DFCN1`` through
+``torch.func.functional_call``, the input gradient by double backward).
+``bn_mode='batch'`` runs the plain modules, as JAX does
+(``gan_trainer.py:266``), ``GenUNet2D``'s FiLM sites through K8 under
+``use_pallas``: the critic loops and the probe see the generator in
+inference mode, and the generator's step runs it in training mode (batch
+statistics, dropout at ``dropout_mode``) and keeps the new statistics
+(:492-521).
 
 Differences from the JAX superstep, none of them in the result: it runs
 eagerly and updates the state in place; epoch-tail rows (beyond
@@ -37,9 +43,10 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from ..config import DataConfig, GanTrainConfig, ModelConfig
-from ..io.flax_bridge import gan_train_state_from_trees, unflatten_tree
+from ..io.flax_bridge import gan_train_state_from_trees, unflatten_tree, zeros_like_tree
+from ..models.blocks import Dropout
 from ..models.critic import DisC2DFCN1, init_critic
-from ..models.generator import GenUNet2D, init_generator
+from ..models.generator import GenUNet2D, dropout_masks, init_generator
 from ..ops.fast_critic import FusedCritic
 from ..ops.fast_gen import FusedGenerator
 from .state import GanTrainState
@@ -48,24 +55,21 @@ from .wgan_gp import critic_step_loss, generator_loss
 GEN_KEYS = ("errG", "errG_CY2", "errG_DEM", "errG_MSE", "errG_VOL", "errG_WMH")
 
 
-def _zeros_like_tree(tree):
-    return {k: _zeros_like_tree(v) if isinstance(v, dict) else np.zeros_like(v)
-            for k, v in tree.items()}
-
-
 class GanTrainer:
     """The superstep of the two-critic WGAN-GP on ``device``."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: GanTrainConfig,
                  data_cfg: DataConfig | None = None, device="cuda"):
-        if train_cfg.bn_mode != "frozen":
-            raise ValueError(f"bn_mode {train_cfg.bn_mode!r} is not ported; only 'frozen' is")
+        if train_cfg.bn_mode not in ("frozen", "batch"):
+            raise ValueError(f"bn_mode must be 'frozen' or 'batch', got {train_cfg.bn_mode!r}")
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.threshold = (data_cfg or DataConfig()).wmh_threshold
         self.device = torch.device(device)
+        self.batch_bn = train_cfg.bn_mode == "batch"
+        self.use_fused = model_cfg.use_pallas and not self.batch_bn
         dtype = getattr(torch, model_cfg.compute_dtype)
-        if model_cfg.use_pallas:
+        if self.use_fused:
             self.fused = FusedGenerator(model_cfg, dtype)
             self.fused_critic = FusedCritic(model_cfg, dtype)
         else:
@@ -83,7 +87,7 @@ class GanTrainer:
         for i, name in enumerate(("dy2", "ddem")):
             trees[f"{name}_params"] = init_critic(self.model_cfg, seed=seed + 1 + i)["params"]
         for name in ("g", "dy2", "ddem"):
-            zeros = _zeros_like_tree(trees[f"{name}_params"])
+            zeros = zeros_like_tree(trees[f"{name}_params"])
             trees[f"{name}_opt"] = {"count": 0, "mu": zeros, "nu": zeros}
         c = self.cfg
         return gan_train_state_from_trees(trees, c.lr_g, c.lr_d, c.adam_b1, c.adam_b2,
@@ -97,7 +101,8 @@ class GanTrainer:
 
     def draw(self, d: int, batch: int, generator: torch.Generator | None = None) -> dict:
         """The superstep's random draws: per-iteration noises and GP
-        epsilons of both critic loops, and the probe's k noises."""
+        epsilons of both critic loops, the probe's k noises and, with batch
+        BatchNorm, the generator step's dropout keep masks by layer name."""
         nz, dev = self.model_cfg.noise_size, self.device
 
         def normal(*shape):
@@ -106,9 +111,12 @@ class GanTrainer:
         def uniform(*shape):
             return torch.rand(shape, generator=generator, device=dev)
 
-        return {"noises_y2": normal(d, batch, nz, 1), "eps_y2": uniform(d, batch, 1, 1, 1),
-                "noises_dem": normal(d, batch, nz, 1), "eps_dem": uniform(d, batch, 1, 1, 1),
-                "probe_noises": normal(self.cfg.k_noise, batch, nz, 1)}
+        draws = {"noises_y2": normal(d, batch, nz, 1), "eps_y2": uniform(d, batch, 1, 1, 1),
+                 "noises_dem": normal(d, batch, nz, 1), "eps_dem": uniform(d, batch, 1, 1, 1),
+                 "probe_noises": normal(self.cfg.k_noise, batch, nz, 1)}
+        if self.batch_bn:
+            draws["dropout"] = dropout_masks(self.model_cfg, batch, generator, dev)
+        return draws
 
     # -------------------------------------------------------------- networks
 
@@ -116,7 +124,7 @@ class GanTrainer:
         """G as the GAN graphs see it (Keras learning-phase 0: moving
         statistics, no dropout). The fused path folds the parameters here,
         so call it once per use under the grad mode the use needs."""
-        if self.model_cfg.use_pallas:
+        if self.use_fused:
             W = self.fused.build_weights({"params": unflatten_tree(state.g_params),
                                           "batch_stats": unflatten_tree(state.g_stats)})
             return lambda x, z: self.fused.forward(W, x, z)
@@ -125,7 +133,7 @@ class GanTrainer:
 
     def _critic_fns(self, params: dict):
         """(score, input gradient or None) for live critic parameters."""
-        if self.model_cfg.use_pallas:
+        if self.use_fused:
             fc = self.fused_critic
             return (lambda img: fc.forward(params, img),
                     lambda m: fc.score_and_input_grad(params, m)[1])
@@ -199,11 +207,19 @@ class GanTrainer:
         best = torch.argmin(probe_losses)
 
         with record_function("superstep.generator_step"):
-            loss, aux = loss_of(self._gen_forward(state)(x, probes[best]))
+            if self.batch_bn:
+                drop = Dropout(self.model_cfg.dropout_rate, draws.get("dropout"), generator)
+                dem = functional_call(self.gen, {**state.g_params, **state.g_stats},
+                                      (x, probes[best]), {"train": True, "dropout": drop})
+            else:
+                dem = self._gen_forward(state)(x, probes[best])
+            loss, aux = loss_of(dem)
             plist = list(state.g_params.values())
             for p, g in zip(plist, torch.autograd.grad(loss, plist)):
                 p.grad = g
             state.g_opt.step()
+            if self.batch_bn:
+                state.g_stats = self.gen.updated_batch_stats()
 
         metrics = {"crit_y2_real": y2_real, "crit_y2_fake": y2_fake,
                    "crit_dem_real": dem_real, "crit_dem_fake": dem_fake,

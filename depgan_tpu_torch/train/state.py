@@ -1,4 +1,4 @@
-"""Training state of the two-critic WGAN-GP.
+"""Training state of the two-critic WGAN-GP and of the UResNet trainer.
 
 Counterpart of ``depgan_tpu/train/state.py``. The JAX state is an immutable
 pytree that each superstep returns anew; here the state holds leaf tensors
@@ -23,12 +23,23 @@ class GanTrainState:
     """G, both critics, and the Adam state of each."""
 
     g_params: dict[str, torch.Tensor]
-    g_stats: dict[str, torch.Tensor]  # BatchNorm moving statistics (frozen)
+    g_stats: dict[str, torch.Tensor]  # BatchNorm moving statistics
     g_opt: torch.optim.Adam
     dy2_params: dict[str, torch.Tensor]
     dy2_opt: torch.optim.Adam
     ddem_params: dict[str, torch.Tensor]
     ddem_opt: torch.optim.Adam
+
+
+@dataclass
+class UResNetTrainState:
+    """The generator, its BatchNorm moving statistics, Adam, and the count
+    of epochs done."""
+
+    params: dict[str, torch.Tensor]
+    batch_stats: dict[str, torch.Tensor]
+    opt: torch.optim.Adam
+    epoch: int = 0
 
 
 @dataclass

@@ -15,13 +15,18 @@ import numpy as np
 import pytest
 import torch
 
-from depgan_tpu_torch.config import ModelConfig
-from depgan_tpu_torch.io.flax_bridge import flatten_tree, load_flax_variables, unflatten_tree
+from depgan_tpu_torch.config import ModelConfig, UResNetTrainConfig
+from depgan_tpu_torch.io.flax_bridge import (
+    flatten_tree, load_flax_variables, unflatten_tree, uresnet_train_state_from_trees)
 from depgan_tpu_torch.models import DisC2DFCN1, GenUNet2D, init_critic, init_generator
+from depgan_tpu_torch.models.generator import dropout_masks
 from depgan_tpu_torch.ops import conv_s2d as K
 from depgan_tpu_torch.ops import s2d_conv as S
 from depgan_tpu_torch.ops.fast_critic import FusedCritic
 from depgan_tpu_torch.ops.fast_gen import FastGenerator, FusedGenerator
+from depgan_tpu_torch.ops.film import film_residual, film_residual_plain
+from depgan_tpu_torch.train.state import adam_moments
+from depgan_tpu_torch.train.uresnet_trainer import UResNetTrainer
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -291,3 +296,93 @@ def test_fused_critic_gp_on_cuda(cuda):
         # or exact zeros, depending on the path autograd took.
         ours, ref = (torch.zeros_like(p) if t is None else t for t in (params[name].grad, p.grad))
         torch.testing.assert_close(ours, ref, atol=1e-3, rtol=1e-3, msg=name)
+
+
+# K8 at the generator's site shapes (H, C) at image 256, first_fm 32 (p3,
+# p2 and p1 repeat m3, m2 and m1), a ragged C and one below a vector.
+FILM_CASES = {"m1_256x32": (2, 256, 256, 32), "m2_128x64": (2, 128, 128, 64),
+              "m3_64x96": (2, 64, 64, 96), "p4_32x128": (2, 32, 32, 128),
+              "ragged_c13": (3, 5, 7, 13), "c3": (2, 3, 5, 3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FILM_CASES))
+def test_film_kernel_matches_plain(cuda, case, dtype):
+    """f32: the plain version's arithmetic exactly (no FMA contraction; atol
+    2e-6 all the same); bf16: within one bf16 ulp of the f32 result."""
+    dt = getattr(torch, dtype)
+    shape = FILM_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    h, trunk = (torch.randn(shape, generator=g, device=cuda).to(dt) for _ in range(2))
+    gamma = (1.0 + 0.5 * torch.randn(shape[0], shape[-1], generator=g, device=cuda)).to(dt)
+    beta = torch.randn(shape[0], shape[-1], generator=g, device=cuda).to(dt)
+    before = K.launches()["film_residual"]
+    out = film_residual(h, gamma, beta, trunk)
+    torch.cuda.synchronize()
+    assert K.launches()["film_residual"] == before + 1
+    assert out.dtype == dt and out.shape == h.shape
+    if dt == torch.float32:
+        torch.testing.assert_close(out, film_residual_plain(h, gamma, beta, trunk), atol=2e-6,
+                                   rtol=0)
+    else:
+        exact = film_residual_plain(h.float(), gamma.float(), beta.float(), trunk.float())
+        ulp = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(1e-30))) - 7)
+        assert bool(((out.float() - exact).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+def test_film_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    h = torch.randn(2, 8, 8, 16, device=cuda)
+    gamma, beta = torch.ones(2, 16, device=cuda), torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        film_residual(h.transpose(1, 2), gamma, beta, h)
+    with pytest.raises(ValueError, match="different devices"):
+        film_residual(h, gamma.cpu(), beta, h)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        film_residual(h.half(), gamma, beta, h.half())
+
+
+@pytest.mark.gpu
+def test_uresnet_step_on_cuda_matches_cpu(cuda):
+    """One UResNetTrainer step through K8 on the card against the same step
+    on the CPU (the kernel's plain version): the same state, batch, noise
+    and dropout masks; float32, random weights."""
+    cfg = ModelConfig(image_size=32, first_fm=8, n_out=4, dropout_mode="uresnet",
+                      use_pallas=True)
+    rng = np.random.default_rng(5)
+    variables = init_generator(cfg, seed=5)
+    params = {k: rng.normal(0, 0.2, v.shape).astype(np.float32)
+              for k, v in flatten_tree(variables["params"]).items()}
+    tree = unflatten_tree(params)
+    x = rng.uniform(size=(6, 32, 32, 1)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[np.digitize(x[..., 0], [0.3, 0.6, 0.85])]
+    noise = rng.normal(size=(6, cfg.noise_size, 1)).astype(np.float32)
+    masks = dropout_masks(cfg, 4, torch.Generator().manual_seed(5))
+    # Adam moments that are not zero, so a rounding-level gradient (the
+    # biases before a training BatchNorm have an exact gradient of zero)
+    # does not become a step of +-lr.
+    opt = {"count": 3,
+           "mu": unflatten_tree({k: rng.normal(0, 1e-3, v.shape).astype(np.float32)
+                                 for k, v in params.items()}),
+           "nu": unflatten_tree({k: rng.uniform(1e-6, 1e-5, v.shape).astype(np.float32)
+                                 for k, v in params.items()})}
+    runs = {}
+    for device in ("cpu", cuda):
+        trainer = UResNetTrainer(cfg, UResNetTrainConfig(batch_size=4), device=device)
+        state = uresnet_train_state_from_trees(tree, variables["batch_stats"], opt, 1e-4, device)
+        K.reset_launch_counts()
+        state, loss = trainer.step(
+            state, *(torch.from_numpy(a).to(device) for a in (x, y, noise)), [5, 1, 3, 0],
+            dropout={k: m.to(device) for k, m in masks.items()})
+        runs[str(device)] = (state, float(loss), K.launches()["film_residual"])
+    (ref, ref_loss, cpu_launches), (state, loss, launches) = runs["cpu"], runs["cuda"]
+    assert cpu_launches == 0 and launches == 7
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, p in state.params.items():
+        # Within 5% of lr (1e-4).
+        torch.testing.assert_close(p.detach().cpu(), ref.params[name].detach(), atol=5e-6,
+                                   rtol=0, msg=name)
+    for name, s in state.batch_stats.items():
+        torch.testing.assert_close(s.cpu(), ref.batch_stats[name], atol=1e-5, rtol=1e-4, msg=name)
+    assert adam_moments(state.opt, state.params)[0] == 4

@@ -23,6 +23,7 @@ from depgan_tpu_torch.models import GenUNet2D
 from depgan_tpu_torch.ops import conv_s2d
 from depgan_tpu_torch.ops.fast_gen import FastGenerator
 from depgan_tpu_torch.train.gan_trainer import GanTrainer
+from depgan_tpu_torch.train.uresnet_trainer import UResNetTrainer
 from test_torch_models import CONFIGS, _map, inputs, jax_cfg, randomized_variables
 
 REPO = Path(__file__).resolve().parents[1]
@@ -92,7 +93,7 @@ def test_predict_draws_seeded_noise():
 def test_entry_points_default_to_cuda():
     """The port's entry points run on the card unless the caller asks for
     the CPU, as these tests do."""
-    for entry in (EnsemblePredictor, FastGenerator, GanTrainer):
+    for entry in (EnsemblePredictor, FastGenerator, GanTrainer, UResNetTrainer):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
@@ -101,7 +102,9 @@ def test_port_imports_no_jax():
     code = ("import sys; import depgan_tpu_torch.eval.predict, depgan_tpu_torch.ops.fast_gen, "
             "depgan_tpu_torch.io.flax_bridge, depgan_tpu_torch.models, "
             "depgan_tpu_torch.ops.fast_critic, depgan_tpu_torch.train.gan_trainer, "
-            "depgan_tpu_torch.benchmarks; "
+            "depgan_tpu_torch.benchmarks, depgan_tpu_torch.train.uresnet_trainer, "
+            "depgan_tpu_torch.ops.film, depgan_tpu_torch.data.pipeline, "
+            "depgan_tpu_torch.data.preprocess, depgan_tpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules "
             "             if m.split('.')[0] in ('jax', 'flax', 'jaxlib', 'depgan_tpu')); "
             "assert not bad, bad")
