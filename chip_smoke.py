@@ -10,12 +10,23 @@
    first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
    bfloat16 (atol = rtol = 1e-2 against the plain version computed in
    float32 from the same bf16 inputs and rounded once: the rounding), with
-   exactly-zero border rings on NaN-poisoned outputs.
+   exactly-zero border rings on NaN-poisoned outputs. K9, K10 and K12 at
+   the serving options' shapes too (K9's float32 limit widened by what its
+   bf16 rounding of a value within float32 error of a rounding tie can
+   move: ``head_rounding_slack``), and the chains against the sequential
+   kernels on the same inputs (K1 or K3 -> K1 film -> K1 or K2), whose
+   largest difference is printed (0: bit-identical).
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
    two synthetic 42-slice subjects against the plain float32 generator with
    the same noise (max abs diff < 0.05), once more with the UResNet softmax
    head, and the launch counts of that run: exactly 8, 2, 2 and 1 per
-   forward for K1-K4 and no other kernel.
+   forward for K1-K4 and no other kernel. 3b. The serving options: a
+   full-width bf16 ``FastGenerator`` over one 42-slice batch with
+   ``fuse_chain``, ``fuse_head`` and both, each within 0.05 of the plain
+   float32 generator with exactly the launches of OPTION_LAUNCHES,
+   ``fuse_chain`` identical to the default forward (or within the kernel
+   phase's chain-to-sequential difference), and ms per forward beside the
+   default path's.
 4. Backward: every autograd rule at the production shapes (float32, batch
    2) against autograd of its plain version, and the 5x5 conv's double
    backward.
@@ -54,7 +65,8 @@
    plain version and the library call that computes the same function,
    beside the bound, each timed on the device over launches captured in
    a CUDA graph; the serving forward's kernels at batch 42 and ms per
-   served subject.
+   served subject; K9 and K10 at the serving options' shapes per forward,
+   and K12 at four site shapes, at batch 42.
 
 Prints one JSON line with the kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -128,6 +140,7 @@ PALLAS = "depgan_tpu/ops/conv_s2d_pallas.py"
 GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d_gemm.cuh
 POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
 FILM_SRC = "depgan_tpu_torch/csrc/film_kernels.cu"
+CHAIN_SRC = "depgan_tpu_torch/csrc/chain_kernels.cu"
 
 # name -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -140,9 +153,21 @@ KERNELS = {
     "pool_s2d": (POOL_SRC, f"{PALLAS}:198"),
     "conv5x5_s2d_fused": (GEMM_SRC, f"{PALLAS}:1918"),
     "film_residual": (FILM_SRC, "depgan_tpu/ops/film_pallas.py:58"),
+    "conv3x3_s2d_fused_head": (GEMM_SRC, f"{PALLAS}:1145"),
+    "conv3x3_s2d_chain3": (CHAIN_SRC, f"{PALLAS}:1741"),
+    "conv3x3_s2d_chain2": (CHAIN_SRC, f"{PALLAS}:1511"),
 }
 LAUNCHES_PER_FORWARD = {"conv3x3_s2d_fused": 8, "conv3x3_s2d_fused_pool": 2,
                         "conv3x3_s2d_fused2": 2, "deconv_s2d": 1}
+# The serving forward's kernel-selecting options (fuse_pool on): launches
+# per forward with each (JAX fast_gen.py:342-351, 397-432, 581-607).
+OPTION_LAUNCHES = {
+    "fuse_chain": {"conv3x3_s2d_chain3": 4, "deconv_s2d": 1},
+    "fuse_head": {"conv3x3_s2d_fused": 7, "conv3x3_s2d_fused_pool": 2, "conv3x3_s2d_fused2": 2,
+                  "deconv_s2d": 1, "conv3x3_s2d_fused_head": 1},
+    "both": {"conv3x3_s2d_chain3": 3, "conv3x3_s2d_fused2": 1, "conv3x3_s2d_fused": 1,
+             "conv3x3_s2d_fused_head": 1, "deconv_s2d": 1},
+}
 
 # (kernel, label, problem without the batch), the problem as the wrappers
 # count it in conv_s2d.SHAPES: n is the interior side of the output plane
@@ -178,6 +203,21 @@ TRAINING_CASES = (
     ("conv5x5_s2d_fused", "L0b dX 64->64", (128, 64, 64, "none")),
     ("conv5x5_s2d_fused", "L1a dX 128->64", (64, 128, 64, "none")),
     ("conv5x5_s2d_fused", "L1b dX 128->128", (64, 128, 128, "none")),
+)
+# K9, K10 and K12 at the serving forward's shapes: K9 at p1's conv_out
+# (n, 4C, 4Co, Ho4); K10 at the four level-1/2 sites (n, 4Ca, 4Cb, 4Cm, 4Co,
+# pool); K12, which no path calls, at the same sites' conv_in + FiLM and
+# FiLM + conv_out pairs (n, 4Ci, 4Cm, 4Co, modes).
+OPTION_CASES = (
+    ("conv3x3_s2d_fused_head", "p1 head 128->128->4", (128, 128, 128, 4)),
+    ("conv3x3_s2d_chain3", "m1 32->128->128 pool s2d", (128, 32, 0, 128, 128, "s2d")),
+    ("conv3x3_s2d_chain3", "m2 128->256->256 pool pixel", (64, 128, 0, 256, 256, "pixel")),
+    ("conv3x3_s2d_chain3", "p2 384+256->256->256", (64, 384, 256, 256, 256, "")),
+    ("conv3x3_s2d_chain3", "p1 256+128->128->128", (128, 256, 128, 128, 128, "")),
+    ("conv3x3_s2d_chain2", "m1 relu+film 32->128->128", (128, 32, 128, 128, "relu", "film")),
+    ("conv3x3_s2d_chain2", "m1 film+relu 128->128->128", (128, 128, 128, 128, "film", "relu")),
+    ("conv3x3_s2d_chain2", "m2 relu+film 128->256->256", (64, 128, 256, 256, "relu", "film")),
+    ("conv3x3_s2d_chain2", "m2 film+relu 256->256->256", (64, 256, 256, 256, "film", "relu")),
 )
 # K8 at the generator's seven FiLM sites, (H, W, C); the decoder's p3, p2
 # and p1 repeat the encoder's m3, m2 and m1.
@@ -223,7 +263,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
                    for p in planes)
 
     case = {"padded": (True,), "flops": 0.0, "peak": PEAK_FLOPS, "library": None}
-    if name.startswith("conv3x3_s2d_fused") and name != "conv3x3_s2d_fused2":
+    if name in ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool"):
         _, n, c4, co4, mode = problem
         c, co = c4 // 4, co4 // 4
         w3, b3 = randn(3, 3, c, co, std=(9 * c) ** -0.5), randn(co, std=0.1)
@@ -302,6 +342,78 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         case["flops"] = 2.0 * b * (2 * n) ** 2 * 25 * (c4 // 4) * (co4 // 4)
         case["bytes"] = (interior_bytes(args[0]) + nbytes(*args[1:])
                          + b * (n + 2) ** 2 * co4 * args[0].element_size())
+    elif name == "conv3x3_s2d_fused_head":
+        _, n, c4, co4, h4 = problem
+        c, co, ho = c4 // 4, co4 // 4, h4 // 4
+        w3, b3 = randn(3, 3, c, co, std=(9 * c) ** -0.5), randn(co, std=0.1)
+        w4, bias4 = S.conv3x3_to_s2d_kernel(w3, b3)
+        w1, b1 = S.conv1x1_to_s2d_kernel(randn(1, 1, co, ho, std=co ** -0.5),
+                                         randn(ho, std=0.1))
+        args = (plane(n, c4), w4.to(dtype).contiguous(), bias4, w1.contiguous(),
+                b1.contiguous())
+        case["kernel"] = lambda: K.conv3x3_s2d_fused_head(*args)
+        case["plain"] = lambda: K.conv3x3_s2d_fused_head_plain(*args)
+        case["slack"] = lambda: head_rounding_slack(*args[:4])
+        case["padded"] = (False,)
+        case["flops"] = 2.0 * b * (2 * n) ** 2 * (9 * c * co + co * ho)
+        case["bytes"] = interior_bytes(args[0]) + nbytes(*args[1:]) + b * n * n * h4 * 4
+    elif name in ("conv3x3_s2d_chain3", "conv3x3_s2d_chain2"):
+        # Each conv from a pixel kernel (HWIO), as the generator's weights
+        # are; the FiLM vectors tiled from per-channel ones.
+        def conv(ci4, co4):
+            w3 = randn(3, 3, ci4 // 4, co4 // 4, std=(9 * ci4 / 4) ** -0.5)
+            w4, bias4 = S.conv3x3_to_s2d_kernel(w3, randn(co4 // 4, std=0.1))
+            return w4.to(dtype).contiguous(), bias4
+
+        def film(c4):
+            return (S.tile_channel_params(randn(b, c4 // 4, std=0.3, mean=1.0)),
+                    S.tile_channel_params(randn(b, c4 // 4, std=0.3)))
+
+        if name == "conv3x3_s2d_chain3":
+            _, n, c4a, c4b, c4m, c4o, pool = problem
+            x, x2 = plane(n, c4a), plane(n, c4b) if c4b else None
+            (w1a, b1), (wf, bf), (w3, b3) = conv(c4a, c4m), conv(c4m, c4m), conv(c4m, c4o)
+            w1b = conv(c4b, c4m)[0] if c4b else None
+            gamma, beta = film(c4m)
+            args = (x, w1a, b1, wf, bf, gamma, beta, w3, b3)
+            case["kernel"] = lambda: K.conv3x3_s2d_chain3(*args, x2_padded=x2, w1b4=w1b,
+                                                          pool=pool)
+            case["plain"] = lambda: K.conv3x3_s2d_chain3_plain(*args, x2, w1b, pool)
+
+            def sequential():  # K1 or K3 -> K1 film -> K2 or K1
+                h = (K._conv3x3_s2d_impl(x, w1a, b1) if x2 is None
+                     else K._conv2_impl(x, x2, w1a, w1b, b1))
+                h = K._conv3x3_s2d_impl(h, wf, bf, gamma, beta, mode="film")
+                if pool:
+                    return K.conv3x3_s2d_fused_pool(h, w3, b3, pool=pool)
+                return K._conv3x3_s2d_impl(h, w3, b3)
+
+            case["padded"] = (True, pool == "s2d")
+            inputs = [t for t in (x, x2) if t is not None]
+            weights = [t for t in (w1a, w1b, b1, wf, bf, gamma, beta, w3, b3) if t is not None]
+            macs = ((c4a + c4b) * c4m + c4m * c4m + c4m * c4o) / 16
+            pooled = {"": 0, "s2d": (n // 2 + 2) ** 2 * c4o, "pixel": n * n * c4o // 4}[pool]
+            out_elems = b * ((n + 2) ** 2 * c4o + pooled)
+        else:
+            _, n, c4i, c4m, c4o, mode1, mode2 = problem
+            x = plane(n, c4i)
+            (w1, b1), (w2, b2) = conv(c4i, c4m), conv(c4m, c4o)
+            gamma, beta = film(c4m if mode1 == "film" else c4o)
+            args = (x, w1, b1, w2, b2, gamma, beta)
+            case["kernel"] = lambda: K.conv3x3_s2d_chain2(*args, modes=(mode1, mode2))
+            case["plain"] = lambda: K.conv3x3_s2d_chain2_plain(*args, modes=(mode1, mode2))
+
+            def sequential():
+                h = K._conv3x3_s2d_impl(x, w1, b1, gamma, beta, mode=mode1)
+                return K._conv3x3_s2d_impl(h, w2, b2, gamma, beta, mode=mode2)
+
+            inputs, weights = [x], [w1, b1, w2, b2, gamma, beta]
+            macs = (c4i * c4m + c4m * c4o) / 16
+            out_elems = b * (n + 2) ** 2 * c4o
+        case["sequential"] = sequential
+        # Pixel-conv FLOPs of the convs; intermediates move no bytes.
+        case["flops"] = 2.0 * b * (2 * n) ** 2 * 9 * macs
+        case["bytes"] = interior_bytes(*inputs) + nbytes(*weights) + out_elems * x.element_size()
     elif name == "film_residual":
         from depgan_tpu_torch.ops import film
 
@@ -320,6 +432,22 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
     else:
         raise ValueError(name)
     return case
+
+
+def head_rounding_slack(x_padded, w4, bias4, w_head4, rel: float = 5e-6) -> torch.Tensor:
+    """What K9's bf16 rounding of its relu output may move each head logit
+    when the conv's float32 sum is taken in another order than the plain
+    version's: one bf16 ulp, times the head weight's size, for each relu
+    output within ``rel`` (1 + |y|) of a bf16 rounding boundary (either
+    rounding is right there: two float32 orders of a K = 512 sum differ by
+    at most ~2e-6 (1 + |y|) on unit-normal data)."""
+    from depgan_tpu_torch.ops import conv_s2d as K
+
+    y = torch.relu(K._matmul_taps(K._taps(x_padded), w4) + bias4.float())
+    tol = rel * (1 + y.abs())
+    either = (y - tol).to(torch.bfloat16) != (y + tol).to(torch.bfloat16)
+    w_head = w_head4.reshape(w4.shape[-1], -1).to(torch.bfloat16).float().abs()
+    return (either * bf16_ulp(y + tol)) @ w_head
 
 
 def ring_is_zero(plane: torch.Tensor) -> bool:
@@ -349,7 +477,8 @@ def check_kernels() -> dict[str, float]:
     data (one FMA's rounding), bfloat16 within one bf16 ulp of the plain
     version computed in float32 and rounded once."""
     worst: dict[str, float] = {}
-    for i, (name, label, problem) in enumerate(SERVING_CASES + TRAINING_CASES + FILM_CASES):
+    cases = SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES
+    for i, (name, label, problem) in enumerate(cases):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             case = make_case(name, (BATCH_CHECK, *problem), dtype, seed=i)
             ref = case["plain"]()
@@ -376,15 +505,44 @@ def check_kernels() -> dict[str, float]:
                     limit = tol + (tol * r.float().abs() if dtype == torch.bfloat16 else 0.0)
                     bound = f"atol {tol:g}" + (f", rtol {tol:g}" if dtype == torch.bfloat16
                                                else "")
+                    if "slack" in case and dtype == torch.float32:
+                        limit = limit + case["slack"]()
+                        bound += " + the head's bf16 rounding ties"
                 check(bool((diff <= limit).all()),
                       f"{name} {label} {dtype}: max abs err {float(diff.max()):.3e} ({bound})")
                 if case["padded"][j]:
                     check(ring_is_zero(o), f"{name} {label}: ring of output {j} not zero")
             worst[name] = max(worst.get(name, 0.0), err)
             rings = ", rings zero" if any(case["padded"]) else ""
+            seq = ""
+            if "sequential" in case:
+                seq = f", {against_sequential(name, label, dtype, out, case['sequential'])}"
             print(f"kernel {name} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
-                  f"({bound}){rings}")
+                  f"({bound}){rings}{seq}")
     return worst
+
+
+SEQUENTIAL_DIFF: dict[str, float] = {}  # chain -> largest difference from its sequential kernels
+
+
+def against_sequential(name: str, label: str, dtype, out: tuple, sequential) -> str:
+    """A chain's outputs against the sequential kernels' on the same
+    inputs: the largest abs difference, recorded in SEQUENTIAL_DIFF. The
+    chain sums each product in the sequential kernels' order and rounds
+    where they store, so the two agree bit for bit; a difference (at most
+    the plain check's tolerance) would come from the tensor cores' order
+    inside a 16-deep product."""
+    ref = sequential()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    torch.cuda.synchronize()
+    diff = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for o, r in zip(out, ref):
+        check(bool(((o.float() - r.float()).abs() <= tol + tol * r.float().abs()).all()),
+              f"{name} {label} {dtype}: {diff:.3e} from the sequential kernels")
+    SEQUENTIAL_DIFF[name] = max(SEQUENTIAL_DIFF.get(name, 0.0), diff)
+    return "bit-identical to the sequential kernels" if diff == 0 else (
+        f"max abs {diff:.3e} from the sequential kernels")
 
 
 def time_ms(fn, iters: int) -> float:
@@ -502,6 +660,88 @@ def serve(cfg, seed: int, n_subjects: int):
         worst = max(worst, diff)
         subjects.append((x, mask))
     return worst, fast, subjects
+
+
+def forward_ms(fn, reps: int = 3) -> float:
+    """Device ms of one call of ``fn`` (a whole forward, host dispatch
+    included): CUDA events around ``reps`` calls after a warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_serving_options(cfg, seed: int, smi: str) -> tuple[dict, dict]:
+    """Phase 3b: the full-width FastGenerator (bf16, one 42-slice batch,
+    random weights from ``seed``) with fuse_chain, fuse_head and both,
+    each against the plain float32 generator with the same noise (max abs
+    < 0.05), with its exact launches (counts set to 0 just before the
+    forward, read just after); fuse_chain against the default forward
+    (identical, or within the kernel phase's difference between the chain
+    and the sequential kernels); then ms per forward with CUDA events,
+    each option beside the default path, in turns. Returns the launches of
+    the three runs summed, and the timings."""
+    from depgan_tpu_torch.io.flax_bridge import load_flax_variables
+    from depgan_tpu_torch.models import GenUNet2D
+    from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.ops.fast_gen import FastGenerator
+
+    variables = randomized_variables(cfg, seed)
+    rng = np.random.default_rng(200 + seed)
+    x = torch.tensor(rng.uniform(size=(BATCH_SERVE, cfg.image_size, cfg.image_size,
+                                       cfg.n_input_channels)), dtype=torch.float32, device=DEVICE)
+    z = torch.tensor(rng.normal(size=(BATCH_SERVE, cfg.noise_size, 1)), dtype=torch.float32,
+                     device=DEVICE)
+    with torch.no_grad():
+        ref = load_flax_variables(GenUNet2D(cfg, device=DEVICE), variables).eval()(x, z)
+    fast = FastGenerator(cfg, variables, torch.bfloat16, DEVICE)
+    default = fast(x, z)
+    flags = {"default": (False, False), "fuse_chain": (False, True), "fuse_head": (True, False),
+             "both": (True, True)}
+
+    def run(option):
+        fast.fuse_head, fast.fuse_chain = flags[option]
+        return fast(x, z)
+
+    total = dict.fromkeys(KERNELS, 0)
+    for option, want in OPTION_LAUNCHES.items():
+        K.reset_launch_counts()
+        out = run(option)
+        torch.cuda.synchronize()
+        launches = K.launches()
+        got = {k: v for k, v in launches.items() if v}
+        check(got == want, f"serving {option}: launches {got}, expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"serving {option}: output {tuple(out.shape)}")
+        diff = float((out - ref).abs().max())
+        check(diff < 0.05, f"serving {option}: max abs diff {diff:.4f} from the plain float32 "
+                           f"generator")
+        line = f"serve option {option}: max abs diff {diff:.4e} from the plain float32 generator"
+        if option == "fuse_chain":
+            chain = float((out - default).abs().max())
+            allowed = SEQUENTIAL_DIFF.get("conv3x3_s2d_chain3", 0.0)
+            check(chain == 0.0 or chain <= allowed,
+                  f"serving fuse_chain: {chain:.3e} from the default forward, the kernel phase "
+                  f"found {allowed:.3e} between chain and sequential kernels")
+            line += f", {chain:.4e} from the default forward"
+        print(f"{line}, launches {got}")
+    times = {option: [] for option in flags}
+    for option in ("default", "fuse_chain", "fuse_head", "both",
+                   "both", "fuse_head", "fuse_chain", "default"):
+        times[option].append(forward_ms(lambda: run(option)))
+    fast.fuse_head = fast.fuse_chain = False
+    best = {option: min(t) for option, t in times.items()}
+    print(f"time serving options on {smi}: ms per {BATCH_SERVE}-slice forward (least of 2 "
+          f"turns, each 3 forwards after a warm-up): "
+          + ", ".join(f"{o} {best[o]:.3f} ({', '.join(f'{t:.3f}' for t in times[o])})"
+                      for o in flags))
+    return total, best
 
 
 def close(a: torch.Tensor | None, b: torch.Tensor | None, rel: float, what: str) -> float:
@@ -997,11 +1237,13 @@ def expected_superstep_launches(d: int, k: int) -> dict[str, int]:
     scores k outputs with both critics. Frozen BatchNorm runs no K8.
     """
     gen_fwd, steps, probe = 2 * d + k + 1, 2 * d, 2 * k
-    return {"conv3x3_s2d_fused": 10 * gen_fwd, "conv3x3_s2d_fused[none]": 17,
-            "conv3x3_s2d_fused_pool": 0, "conv3x3_s2d_fused2": 2 * gen_fwd,
-            "deconv_s2d": gen_fwd, "pool_to_s2d": gen_fwd + 3 * steps + probe + 2,
-            "pool_s2d": gen_fwd + 3 * steps + probe + 2,
-            "conv5x5_s2d_fused": 26 * steps + 4 * probe + 16, "film_residual": 0}
+    counts = dict.fromkeys(KERNELS, 0)  # no other kernel, K2, K8 and K9-K12 included
+    counts.update({"conv3x3_s2d_fused": 10 * gen_fwd, "conv3x3_s2d_fused[none]": 17,
+                   "conv3x3_s2d_fused2": 2 * gen_fwd, "deconv_s2d": gen_fwd,
+                   "pool_to_s2d": gen_fwd + 3 * steps + probe + 2,
+                   "pool_s2d": gen_fwd + 3 * steps + probe + 2,
+                   "conv5x5_s2d_fused": 26 * steps + 4 * probe + 16})
+    return counts
 
 
 def profile_once(fn, what: str, unprofiled_ms: float) -> None:
@@ -1075,7 +1317,9 @@ def main() -> int:
 
     # Phase 2: each kernel against its plain version.
     worst = check_kernels()
-    print(f"phase kernels: {2 * len(SERVING_CASES + TRAINING_CASES + FILM_CASES)} checks passed")
+    n_cases = len(SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES)
+    print(f"phase kernels: {2 * n_cases} checks passed; chains against the sequential kernels: "
+          + ", ".join(f"{k} max abs {v:.3e}" for k, v in SEQUENTIAL_DIFF.items()))
 
     # Phase 3: the serving path, counting kernel launches.
     gan = ModelConfig(image_size=256, first_fm=32, n_input_channels=1)
@@ -1091,6 +1335,8 @@ def main() -> int:
                                      f"serving forwards, expected {want}")
     print(f"phase serving: {forwards} forwards, max abs diff tanh {gan_diff:.4e}, "
           f"softmax {uresnet_diff:.4e}, launches {serving}")
+    options, option_ms = check_serving_options(gan, seed=2, smi=smi)
+    print("phase serving options: passed")
 
     # Phases 4-6: the training path's correctness, float32.
     check_backward()
@@ -1126,6 +1372,10 @@ def main() -> int:
         serving_shapes[name, (BATCH_SERVE, *problem)] = (
             2 if problem[-1] == "film" else 1) if name == "conv3x3_s2d_fused" else 1
     per_forward = replay(serving_shapes, torch.bfloat16, f"serving forward batch {BATCH_SERVE}")
+    # K9 and K10 as one forward with both options (K10 at all four sites,
+    # as fuse_chain alone runs it); K12 at its four site shapes.
+    per_option = replay({(name, (BATCH_SERVE, *problem)): 1 for name, _, problem in OPTION_CASES},
+                        torch.bfloat16, f"serving options batch {BATCH_SERVE}")
 
     # The UResNet training step, float32 (train-uresnet's default) and bfloat16.
     uresnet_steps, film = {}, {}
@@ -1160,18 +1410,24 @@ def main() -> int:
     print(f"time serving on {smi}: {subject_ms:.2f} ms per {BATCH_SERVE}-slice subject "
           f"x {N_REPEAT} repeats = {BATCH_SERVE * N_REPEAT / (subject_ms / 1e3):.1f} "
           f"slice-forwards/s, kernels {sum(t['ms'] for t in per_forward.values()):.3f} ms "
-          f"per forward")
+          f"per forward; with the options, ms per forward: "
+          + ", ".join(f"{o} {t:.3f}" for o, t in option_ms.items()))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "film_residual":
             timing, unit = film["float32"], f"per UResNet training step, batch {BATCH_TRAIN}, float32"
+        elif name == "conv3x3_s2d_chain2":
+            timing, unit = per_option[name], "4 launches at the generator's site shapes"
+        elif name in per_option:
+            timing, unit = per_option[name], "per serving forward with the option"
         elif name in training:
             timing, unit = training[name], "per superstep"
         else:
             timing, unit = per_forward[name], "per serving forward"
-        runs = {"serving": serving[name], "superstep": superstep[name],
-                "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name]}
+        runs = {"serving": serving[name], "serving_options": options[name],
+                "superstep": superstep[name], "uresnet_fit": uresnet_fit[name],
+                "batch_bn_superstep": batch_bn[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(runs.values()), **{f"launches_{k}": v for k, v in runs.items()},

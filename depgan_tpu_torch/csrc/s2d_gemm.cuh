@@ -29,8 +29,14 @@
 // nothing (the backward's transposed convs), rounds once to the storage
 // type, and can also emit the 2x2 max-pool of the rounded values: a pool
 // window is the four channel groups of one s2d position, so a block that
-// owns all co4 columns pools from shared memory. Every launch also writes
-// the zero ring of its padded outputs.
+// owns all co4 columns pools from shared memory. The head epilogue
+// (conv3x3_s2d_fused_head) rounds the relu output to bf16 and, from shared
+// memory too, applies the 1x1 head, its bias and tanh in place of the
+// store. Every launch also writes the zero ring of its padded outputs.
+// Each output element sums its k-products in one fixed order (k-tiles of
+// 32 in order, 16 a wmma step; one FMA a product for f32), whatever the
+// tile shape, so the chained kernels of chain_kernels.cu, which reuse Mma
+// with other tiles, reproduce these kernels bit for bit.
 //
 // Operands reach shared memory through a 3-stage cp.async pipeline of
 // 16-byte copies (zero-filled past the edges), so the gather of k-tile t+2
@@ -54,7 +60,7 @@
 namespace depgan {
 
 enum Gather : int { kGatherConv3x3 = 0, kGatherDeconv = 1, kGatherConv5x5 = 2 };
-enum Epilogue : int { kRelu = 0, kFilm = 1, kNone = 2 };
+enum Epilogue : int { kRelu = 0, kFilm = 1, kNone = 2, kHead = 3 };
 enum PoolMode : int { kPoolNone = 0, kPoolPixel = 1, kPoolS2d = 2 };
 
 constexpr int kThreads = 256;  // 8 warps
@@ -70,6 +76,12 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch does
+}
+
+// The FiLM site's epilogue, trunk + relu(y * gamma + beta), with y the conv
+// output plus its bias: one FMA, so every kernel that applies it rounds alike.
+__device__ __forceinline__ float film_site(float y, float gamma, float beta, float trunk) {
+  return trunk + fmaxf(fmaf(y, gamma, beta), 0.f);
 }
 
 template <typename T>
@@ -94,14 +106,20 @@ struct Problem {
   const float* bias;   // (co4,)
   const float* gamma;  // (batch, co4), film only
   const float* beta;   // (batch, co4), film only
-  T* out;              // (batch, n+2, n+2, co4)
+  T* out;              // (batch, n+2, n+2, co4); unused by the head
   T* pooled;           // pixel: (batch, n, n, co4/4); s2d: (batch, n/2+2, n/2+2, co4)
+  const __nv_bfloat16* w_head;  // (co4, h4), head only
+  const float* b_head;          // (h4,)
+  float* head_out;              // (batch, n, n, h4): tanh(head), unpadded
+  int h4;
 };
 
-template <typename T, int BN>
+// The engine's blocks own 256 x 64, 128 x 128 or 64 x 256 outputs; the
+// chained kernels take 64 x 128.
+template <typename T, int BN, int BM_ = 16384 / BN>
 struct Tile {
   static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte copy
-  static constexpr int BM = 16384 / BN;  // 256 x 64, 128 x 128 or 64 x 256 outputs a block
+  static constexpr int BM = BM_;
   static constexpr int LDA = kBK + 8;    // As[m][k]
   static constexpr int LDB = BN + 8;     // Bs[k][n]
   static constexpr int LDC = BN + 4;     // Cs[m][n], f32, aliases the stages
@@ -124,13 +142,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename T, int BN> struct Mma;
+template <typename T, int BN, int BM = 16384 / BN> struct Mma;
 
 // f32: CUDA-core FMAs, TM x 4 outputs a thread, columns strided by TX so a
 // warp reads consecutive Bs words and one broadcast As row.
-template <int BN>
-struct Mma<float, BN> {
-  using Tl = Tile<float, BN>;
+template <int BN, int BM>
+struct Mma<float, BN, BM> {
+  using Tl = Tile<float, BN, BM>;
   static constexpr int TN = 4, TX = BN / TN, TY = kThreads / TX, TM = Tl::BM / TY;
   float acc[TM][TN];
 
@@ -167,9 +185,9 @@ struct Mma<float, BN> {
 // bf16: tensor cores through wmma; each warp owns a WM x WN sub-tile of
 // FM x FN 16x16 fragments (64 x 32 or 32 x 64), so each fragment load feeds
 // FN or FM products.
-template <int BN>
-struct Mma<__nv_bfloat16, BN> {
-  using Tl = Tile<__nv_bfloat16, BN>;
+template <int BN, int BM>
+struct Mma<__nv_bfloat16, BN, BM> {
+  using Tl = Tile<__nv_bfloat16, BN, BM>;
   static constexpr int FM = Tl::WM / 16, FN = Tl::WN / 16;
   nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 
@@ -251,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
   {
     const int64_t start = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + tid;
     const int64_t stride = (int64_t)gridDim.x * gridDim.y * kThreads;
-    zero_ring(pr.out, pr.batch, side, pr.co4, start, stride);
+    if (pr.epilogue != kHead) zero_ring(pr.out, pr.batch, side, pr.co4, start, stride);
     if (pr.pool == kPoolS2d) zero_ring(pr.pooled, pr.batch, n / 2 + 2, pr.co4, start, stride);
   }
 
@@ -399,16 +417,21 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
     float v[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) v[j] = Cs[r * LDC + cc + j] + pr.bias[col + j];
-    if (pr.epilogue == kRelu) {
+    if (pr.epilogue == kRelu || pr.epilogue == kHead) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) v[j] = fmaxf(v[j], 0.f);
-    } else if (pr.epilogue == kFilm) {  // FiLM site: trunk + relu(y * gamma + beta), trunk = the input
+    } else if (pr.epilogue == kFilm) {  // FiLM site, the trunk being the input
       Pack t;
       t.u = *reinterpret_cast<const uint4*>(pr.op[0].x + row_trunk[r] + col);
       const int gb = row_gb[r] + col;
 #pragma unroll
       for (int j = 0; j < VEC; ++j)
-        v[j] = to_f32(t.v[j]) + fmaxf(v[j] * pr.gamma[gb + j] + pr.beta[gb + j], 0.f);
+        v[j] = film_site(v[j], pr.gamma[gb + j], pr.beta[gb + j], to_f32(t.v[j]));
+    }
+    if (pr.epilogue == kHead) {  // the head reads the relu output rounded to bf16
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) Cs[r * LDC + cc + j] = __bfloat162float(__float2bfloat16(v[j]));
+      continue;
     }
     Pack q;
 #pragma unroll
@@ -417,6 +440,19 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
     if (pr.pool != kPoolNone) {  // pool the stored values
 #pragma unroll
       for (int j = 0; j < VEC; ++j) Cs[r * LDC + cc + j] = to_f32(q.v[j]);
+    }
+  }
+
+  if (pr.epilogue == kHead) {  // the launcher guarantees n0 == 0 and BN >= co4
+    __syncthreads();
+    for (int e = tid; e < BM * pr.h4; e += kThreads) {
+      const int r = e / pr.h4, h = e % pr.h4;
+      if (row_out[r] < 0) continue;
+      const float* row = Cs + r * LDC;
+      float acc = 0.f;
+      for (int c = 0; c < pr.co4; ++c)
+        acc = fmaf(row[c], __bfloat162float(pr.w_head[c * pr.h4 + h]), acc);
+      pr.head_out[(m0 + r) * pr.h4 + h] = tanhf(acc + pr.b_head[h]);
     }
   }
 
@@ -455,9 +491,10 @@ cudaError_t launch(const Problem<T>& pr, cudaStream_t stream) {
   const int run = pr.gather == kGatherConv5x5 ? 8 : 32;
   for (int o = 0; o < pr.n_ops; ++o)
     if (pr.op[o].c4 % run != 0) return cudaErrorInvalidValue;
-  if (pr.pool == kPoolNone)
+  if (pr.pool == kPoolNone && pr.epilogue != kHead)
     return pr.co4 <= 64 ? launch_tile<T, 64>(pr, stream) : launch_tile<T, 128>(pr, stream);
-  // The fused pool needs every output channel of a position in one block.
+  // The fused pool and the head need every output channel of a position in
+  // one block.
   if (pr.pool == kPoolS2d && pr.n % 2 != 0) return cudaErrorInvalidValue;
   if (pr.co4 <= 128) return launch_tile<T, 128>(pr, stream);
   if (pr.co4 <= 256) return launch_tile<T, 256>(pr, stream);

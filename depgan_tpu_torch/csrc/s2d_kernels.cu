@@ -17,6 +17,14 @@
 //    that also writes the 2x2 max-pool of its stored output, either as the
 //    next level's padded s2d plane or in the pixel domain. Its blocks own
 //    every channel group of their positions and pool from shared memory.
+//  - conv3x3_s2d_fused_head (:1145, kernel _kernel mode 'head' :589-606):
+//    the relu conv of p1's conv_out with the generator's 1x1 head in the
+//    epilogue: tanh(bf16(relu(y + b)) @ bf16(W_head) + b_head), summed in
+//    f32, written unpadded (batch, n, n, h4) in f32. Its blocks own all co4
+//    columns (128 x 128 tiles at 4Co = 128) and apply the head from shared
+//    memory, h4 dot products of 4Co a position on the CUDA cores; the
+//    full-channel plane is never stored. At p1 (n = 128, 4C = 4Co = 128,
+//    h4 = 4) the conv is K = 512 deep and the bound is its operations.
 //  - conv3x3_s2d_fused2 (:1289, kernel _kernel2 :1217): relu(conv(x1, W1) +
 //    conv(x2, W2) + b), the decoder's first conv over concat(up, skip)
 //    without the concat. The two operands are two k ranges of one GEMM, so
@@ -123,6 +131,32 @@ extern "C" int depgan_conv3x3_s2d_fused2(int dtype, const void* x1, const void* 
     pr.pool = kPoolNone;
     pr.bias = static_cast<const float*>(bias);
     pr.out = static_cast<T*>(out);
+  });
+}
+
+// w_head: (co4, h4) bf16, b_head: (h4,) f32, out: (batch, n, n, h4) f32.
+extern "C" int depgan_conv3x3_s2d_fused_head(int dtype, const void* x, const void* w4,
+                                             const void* bias, const void* w_head,
+                                             const void* b_head, void* out, int batch, int n,
+                                             int c4, int co4, int h4, void* stream) {
+  if (w_head == nullptr || b_head == nullptr || out == nullptr || h4 <= 0 || h4 > 16)
+    return cudaErrorInvalidValue;
+  return dispatch(dtype, stream, [&](auto& pr) {
+    using T = Elem<std::remove_reference_t<decltype(pr)>>;
+    pr.op[0] = {static_cast<const T*>(x), static_cast<const T*>(w4), c4, 4 * c4};
+    pr.n_ops = 1;
+    pr.gather = kGatherConv3x3;
+    pr.batch = batch;
+    pr.n = n;
+    pr.p_in = n + 2;
+    pr.co4 = co4;
+    pr.epilogue = kHead;
+    pr.pool = kPoolNone;
+    pr.bias = static_cast<const float*>(bias);
+    pr.w_head = static_cast<const __nv_bfloat16*>(w_head);
+    pr.b_head = static_cast<const float*>(b_head);
+    pr.head_out = static_cast<float*>(out);
+    pr.h4 = h4;
   });
 }
 

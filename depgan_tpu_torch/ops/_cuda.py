@@ -43,6 +43,11 @@ _SIGNATURES = {
     "depgan_pool_to_s2d": [_I, _P, _P, _I, _I, _I, _P],
     # dtype, h, gamma, beta, trunk, out, batch, hw, c, stream
     "depgan_film_residual": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, x, w4, bias, w_head (bf16), b_head, out, batch, n, c4, co4, h4, stream
+    "depgan_conv3x3_s2d_fused_head": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x1, x2, w1a, w1b, b1, w2, b2, w3, b3, gamma, beta, out, pooled,
+    # batch, n, c4a, c4b, c4m, c4o, mode1, mode2, mode3, pool, stream
+    "depgan_conv3x3_s2d_chain": [_I] + [_P] * 13 + [_I] * 10 + [_P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

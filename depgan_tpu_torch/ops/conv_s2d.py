@@ -23,6 +23,10 @@ Three layers, as in the JAX package:
   and the deconv are first-order only, as in JAX; the pools' backward is
   plain torch and the 5x5 conv's backward goes through the op itself, so
   both differentiate again (the WGAN-GP double backward).
+- The serving-only ops (``conv3x3_s2d_fused_pool``,
+  ``conv3x3_s2d_fused_head``, ``conv3x3_s2d_chain2``,
+  ``conv3x3_s2d_chain3``): no gradient, as in JAX; the last three refuse
+  inputs that require grad while grad mode is on.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ _POOLS = {"pixel": 1, "s2d": 2}
 # (``ops/film.py``) counts here too.
 KERNEL_NAMES = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
                 "conv3x3_s2d_fused2", "deconv_s2d", "pool_to_s2d", "pool_s2d",
-                "conv5x5_s2d_fused", "film_residual")
+                "conv5x5_s2d_fused", "film_residual", "conv3x3_s2d_fused_head",
+                "conv3x3_s2d_chain3", "conv3x3_s2d_chain2")
 SHAPES: Counter = Counter()
 
 
@@ -197,6 +202,39 @@ def pool_s2d_plain(x_padded):
 def pool_to_s2d_plain(x_padded):
     """The 2x2 max-pool as the next level's padded s2d (B, n/2+2, n/2+2, 4C)."""
     return pad_s2d(s2d_unshifted(pool_s2d_plain(x_padded)))
+
+
+def conv3x3_s2d_fused_head_plain(x_padded, w4, bias4, w_head4, b_head4):
+    """tanh(relu(conv + b) @ W_head + b_head) on the interior: the relu
+    output and the head weights rounded to bfloat16 (the Pallas kernel's
+    roundings, :602-603 and :1172), the head summed in float32. Returns the
+    unpadded (B, N, N, Ho4) float32."""
+    y = torch.relu(_matmul_taps(_taps(x_padded), w4) + bias4.float())
+    w_head = w_head4.reshape(w4.shape[-1], -1).to(torch.bfloat16).float()
+    return torch.tanh(y.to(torch.bfloat16).float() @ w_head + b_head4.float())
+
+
+def conv3x3_s2d_chain2_plain(x_padded, w4_1, bias4_1, w4_2, bias4_2, gamma4=None, beta4=None,
+                             modes=("relu", "film")):
+    """Two chained 3x3 convs, each with its epilogue of ``modes`` and its
+    output rounded to the plane's dtype: the sequential composition."""
+    h = conv3x3_s2d_fused_plain(x_padded, w4_1, bias4_1, gamma4, beta4, modes[0])
+    return conv3x3_s2d_fused_plain(h, w4_2, bias4_2, gamma4, beta4, modes[1])
+
+
+def conv3x3_s2d_chain3_plain(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4, w34, bias34,
+                             x2_padded=None, w1b4=None, pool=""):
+    """A whole site: conv_in (or the two-operand conv over (x, x2)), the
+    FiLM site, conv_out [+ its 2x2 max-pool], each intermediate rounded to
+    the plane's dtype: the sequential composition."""
+    if x2_padded is None:
+        h0 = conv3x3_s2d_fused_plain(x_padded, w1a4, bias14)
+    else:
+        h0 = conv3x3_s2d_fused2_plain(x_padded, x2_padded, w1a4, w1b4, bias14)
+    s = conv3x3_s2d_fused_plain(h0, wf4, biasf4, gamma4, beta4, "film")
+    if pool:
+        return conv3x3_s2d_fused_pool_plain(s, w34, bias34, pool)
+    return conv3x3_s2d_fused_plain(s, w34, bias34)
 
 
 def conv5x5_s2d_fused_plain(x_padded, w9, bias4, mode="relu"):
@@ -415,6 +453,158 @@ def _conv5_impl(x_padded, w9, bias4, mode="relu"):
                 x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(), out.data_ptr(),
                 b, n, c4, co4, _EPILOGUES[mode], _cuda.stream(dev))
     return out
+
+
+def _inference_only(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is inference-only (no gradient, as in JAX): call it "
+                           "under torch.no_grad() or on tensors that do not require grad")
+
+
+def conv3x3_s2d_fused_head(x_padded, w4, bias4, w_head4, b_head4):
+    """tanh(relu(conv3x3_s2d(x) + b) @ W_head + b_head): the relu conv with
+    the 1x1 head in its epilogue, the relu output and the head weights
+    rounded to bfloat16, the head summed in float32. x (B, N+2, N+2, 4C),
+    w4 (2, 2, 4C, 4Co) in the dtype of x, bias4 (4Co,) float32, w_head4
+    (1, 1, 4Co, Ho4) and b_head4 (Ho4,) float32. Returns the unpadded
+    (B, N, N, Ho4) float32. Inference-only. The kernel takes 4Co <= 256 and
+    Ho4 <= 16."""
+    b, n, c4 = _check_plane("conv3x3_s2d_fused_head", x_padded)
+    co4 = w4.shape[-1]
+    _check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
+    _check_f32("bias4", bias4, (co4,))
+    _require(w_head4.ndim == 4 and tuple(w_head4.shape[:3]) == (1, 1, co4),
+             f"w_head4: expected (1, 1, {co4}, Ho4), got {tuple(w_head4.shape)}")
+    h4 = w_head4.shape[-1]
+    _check_f32("w_head4", w_head4, (1, 1, co4, h4))
+    _check_f32("b_head4", b_head4, (h4,))
+    _inference_only("conv3x3_s2d_fused_head", x_padded, w4, bias4, w_head4, b_head4)
+    if not _on_cuda(x_padded, w4, bias4, w_head4, b_head4):
+        return conv3x3_s2d_fused_head_plain(x_padded, w4, bias4, w_head4, b_head4)
+    _require(co4 <= 256 and h4 <= 16,
+             f"the fused head kernel takes 4Co <= 256 and Ho4 <= 16, got {co4}, {h4}")
+    _check_kernel_widths(co4, c4)
+    dev = x_padded.device
+    w_head = w_head4.reshape(co4, h4).to(torch.bfloat16).contiguous()
+    out = torch.empty((b, n, n, h4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("conv3x3_s2d_fused_head", (b, n, c4, co4, h4), "depgan_conv3x3_s2d_fused_head",
+                _cuda.DTYPE_CODES[x_padded.dtype],
+                x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(), w_head.data_ptr(),
+                b_head4.data_ptr(), out.data_ptr(), b, n, c4, co4, h4, _cuda.stream(dev))
+    return out
+
+
+def _launch_chain(name, problem, x1, x2, w1a, w1b, b1, w2, b2, w3, b3, gamma4, beta4, out,
+                  pooled, modes, pool):
+    """One chain launch: stage 1 over (x1[, x2]) into w1a's 4Cm channels,
+    then one or two (``w3``) more 3x3 convs, each stage's epilogue from
+    ``modes``; ``None`` for what the launch does not take."""
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    dev = x1.device
+    with torch.cuda.device(dev):
+        _launch(name, problem, "depgan_conv3x3_s2d_chain", _cuda.DTYPE_CODES[x1.dtype],
+                ptr(x1), ptr(x2), ptr(w1a), ptr(w1b), ptr(b1), ptr(w2), ptr(b2), ptr(w3),
+                ptr(b3), ptr(gamma4), ptr(beta4), ptr(out), ptr(pooled), x1.shape[0],
+                x1.shape[1] - 2, x1.shape[-1], 0 if x2 is None else x2.shape[-1],
+                w1a.shape[-1], out.shape[-1], *(_EPILOGUES[m] for m in modes),
+                _POOLS.get(pool, 0), _cuda.stream(dev))
+
+
+def conv3x3_s2d_chain2(x_padded, w4_1, bias4_1, w4_2, bias4_2, gamma4=None, beta4=None,
+                       modes=("relu", "film")):
+    """conv2[modes[1]](conv1[modes[0]](x)) in one kernel: the intermediate
+    padded plane never exists in device memory. ``modes``: two of relu /
+    film / none, at most one film, whose trunk is that stage's own input and
+    which takes gamma4, beta4 (B, 4C of that stage) float32 (zeros when
+    None, as in JAX). x (B, N+2, N+2, 4Ci), w4_1 (2, 2, 4Ci, 4Cm), w4_2
+    (2, 2, 4Cm, 4Co) in the dtype of x, biases float32. Inference-only."""
+    b, n, c4i = _check_plane("conv3x3_s2d_chain2", x_padded)
+    if len(modes) != 2 or sum(m == "film" for m in modes) > 1:
+        raise ValueError(f"chain2 modes must be 2 with <=1 film: {modes}")
+    _require(all(m in _EPILOGUES for m in modes), f"unknown mode in {modes}")
+    c4m, c4o = w4_1.shape[-1], w4_2.shape[-1]
+    if modes[0] == "film" and c4i != c4m:
+        raise ValueError("film stage 1 requires C_mid == C_in")
+    if modes[1] == "film" and c4m != c4o:
+        raise ValueError("film stage 2 requires C_out == C_mid")
+    _check_weight("w4_1", w4_1, (2, 2, c4i, c4m), x_padded.dtype)
+    _check_weight("w4_2", w4_2, (2, 2, c4m, c4o), x_padded.dtype)
+    _check_f32("bias4_1", bias4_1, (c4m,))
+    _check_f32("bias4_2", bias4_2, (c4o,))
+    film = "film" in modes
+    if film:
+        c4f = c4m if modes[0] == "film" else c4o
+        if gamma4 is None:
+            gamma4 = torch.zeros((b, c4f), dtype=torch.float32, device=x_padded.device)
+            beta4 = torch.zeros_like(gamma4)
+        _check_f32("gamma4", gamma4, (b, c4f))
+        _check_f32("beta4", beta4, (b, c4f))
+    extra = (gamma4, beta4) if film else ()
+    _inference_only("conv3x3_s2d_chain2", x_padded, w4_1, bias4_1, w4_2, bias4_2, *extra)
+    if not _on_cuda(x_padded, w4_1, bias4_1, w4_2, bias4_2, *extra):
+        return conv3x3_s2d_chain2_plain(x_padded, w4_1, bias4_1, w4_2, bias4_2, gamma4, beta4,
+                                        modes)
+    _check_kernel_widths(c4o, c4i, c4m)
+    out = torch.empty((b, n + 2, n + 2, c4o), dtype=x_padded.dtype, device=x_padded.device)
+    _launch_chain("conv3x3_s2d_chain2", (b, n, c4i, c4m, c4o, *modes), x_padded, None, w4_1,
+                  None, bias4_1, w4_2, bias4_2, None, None, gamma4 if film else None,
+                  beta4 if film else None, out, None, (*modes, "none"), "")
+    return out
+
+
+def conv3x3_s2d_chain3(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4, w34, bias34,
+                       x2_padded=None, w1b4=None, pool=""):
+    """A whole generator site in one kernel: conv_out(film_site(conv_in(x)))
+    or, with ``x2_padded``, conv_in the two-operand conv over (x, x2);
+    h0 and the site output never exist in device memory. x (B, N+2, N+2,
+    4Ca), x2 (B, N+2, N+2, 4Cb), w1a4 (2, 2, 4Ca, 4Cm), w1b4 (2, 2, 4Cb,
+    4Cm), wf4 (2, 2, 4Cm, 4Cm), w34 (2, 2, 4Cm, 4Co) in the dtype of x;
+    biases, gamma4 and beta4 (B, 4Cm) float32. Returns out, or (out, pooled)
+    for ``pool`` 's2d' / 'pixel' as ``conv3x3_s2d_fused_pool``.
+    Inference-only."""
+    b, n, c4a = _check_plane("conv3x3_s2d_chain3", x_padded)
+    c4m, c4o = w1a4.shape[-1], w34.shape[-1]
+    if wf4.shape[-1] != c4m:
+        raise ValueError("film conv must keep channels (residual add)")
+    if pool not in ("", "s2d", "pixel"):
+        raise ValueError(f"unknown pool mode {pool!r}")
+    if pool == "s2d" and n % 2:
+        raise ValueError("pool='s2d' needs an even n")
+    dt = x_padded.dtype
+    two_op = x2_padded is not None
+    c4b = 0
+    if two_op:
+        b2, n2, c4b = _check_plane("conv3x3_s2d_chain3 x2", x2_padded)
+        _require((b2, n2) == (b, n) and x2_padded.dtype == dt,
+                 "x and x2 must share batch, plane size and dtype")
+        _require(w1b4 is not None, "the two-operand chain needs w1b4")
+        _check_weight("w1b4", w1b4, (2, 2, c4b, c4m), dt)
+    _check_weight("w1a4", w1a4, (2, 2, c4a, c4m), dt)
+    _check_weight("wf4", wf4, (2, 2, c4m, c4m), dt)
+    _check_weight("w34", w34, (2, 2, c4m, c4o), dt)
+    for name, t, shape in (("bias14", bias14, (c4m,)), ("biasf4", biasf4, (c4m,)),
+                           ("gamma4", gamma4, (b, c4m)), ("beta4", beta4, (b, c4m)),
+                           ("bias34", bias34, (c4o,))):
+        _check_f32(name, t, shape)
+    ops = [t for t in (x_padded, x2_padded, w1a4, w1b4) if t is not None]
+    rest = (bias14, wf4, biasf4, gamma4, beta4, w34, bias34)
+    _inference_only("conv3x3_s2d_chain3", *ops, *rest)
+    if not _on_cuda(*ops, *rest):
+        return conv3x3_s2d_chain3_plain(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4,
+                                        w34, bias34, x2_padded, w1b4, pool)
+    _check_kernel_widths(c4o, c4a, c4m, *((c4b,) if two_op else ()))
+    dev = x_padded.device
+    out = torch.empty((b, n + 2, n + 2, c4o), dtype=dt, device=dev)
+    pooled = None
+    if pool == "s2d":
+        pooled = torch.empty((b, n // 2 + 2, n // 2 + 2, c4o), dtype=dt, device=dev)
+    elif pool == "pixel":
+        pooled = torch.empty((b, n, n, c4o // 4), dtype=dt, device=dev)
+    _launch_chain("conv3x3_s2d_chain3", (b, n, c4a, c4b, c4m, c4o, pool), x_padded, x2_padded,
+                  w1a4, w1b4, bias14, wf4, biasf4, w34, bias34, gamma4, beta4, out, pooled,
+                  ("relu", "film", "relu"), pool)
+    return (out, pooled) if pool else out
 
 
 # --------------------------------------------------------------------------

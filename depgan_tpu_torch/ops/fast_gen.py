@@ -35,8 +35,10 @@ from ..models.blocks import conv2d_same, max_pool_2x2
 from ..models.film import site_suffix
 from . import s2d_conv as S
 from .conv_s2d import (
+    conv3x3_s2d_chain3,
     conv3x3_s2d_fused,
     conv3x3_s2d_fused2,
+    conv3x3_s2d_fused_head,
     conv3x3_s2d_fused_pool,
     deconv_s2d,
     entry_pack,
@@ -77,6 +79,12 @@ class FusedGenerator:
     rounded once from float32; the noise encoder, the kernels' biases and
     the head stay float32. ``fuse_pool`` (off here, on for serving) pools
     each encoder level inside its last conv's kernel, which has no gradient.
+    Two more serving options select kernels without a gradient, off by
+    default as in JAX: ``fuse_chain`` runs each level-1/2 site (conv_in or
+    the two-operand conv, FiLM, conv_out [+ pool]) as one
+    ``conv3x3_s2d_chain3`` launch, and ``fuse_head`` runs p1's conv_out with
+    the 1x1 tanh head in its epilogue (``conv3x3_s2d_fused_head``; the tanh
+    head only, p1 then stays sequential).
     """
 
     entry_pad_cin = 8  # the entry conv's input channels are padded to this
@@ -91,6 +99,8 @@ class FusedGenerator:
         self.cfg = cfg
         self.dtype = compute_dtype
         self.fuse_pool = False
+        self.fuse_head = False
+        self.fuse_chain = False
         self._site_slices: dict[str, tuple[tuple[int, int], tuple[int, int]]] = {}
 
     # ------------------------------------------------------------- weights
@@ -176,6 +186,14 @@ class FusedGenerator:
         and its 2x2 max-pool ('s2d': the next level's padded plane, 'pixel':
         the pixel domain). Returns (conv_out, pooled)."""
         gamma, beta = (S.tile_channel_params(v) for v in mods[site])
+        if self.fuse_chain:
+            out = conv3x3_s2d_chain3(
+                x_padded, W[f"{cin}/kernel"], W[f"{cin}/bias"], W[f"noise_{site}/kernel"],
+                W[f"noise_{site}/bias"], gamma, beta, W[f"{cout}/kernel"], W[f"{cout}/bias"],
+                pool=pool if self.fuse_pool else "")
+            if self.fuse_pool:
+                return out
+            return out, (pool_to_s2d if pool == "s2d" else pool_s2d)(out)
         h = conv3x3_s2d_fused(x_padded, W[f"{cin}/kernel"], W[f"{cin}/bias"])
         h = conv3x3_s2d_fused(h, W[f"noise_{site}/kernel"], W[f"noise_{site}/bias"],
                               gamma, beta, mode="film")
@@ -184,14 +202,24 @@ class FusedGenerator:
         h = conv3x3_s2d_fused(h, W[f"{cout}/kernel"], W[f"{cout}/bias"])
         return h, (pool_to_s2d if pool == "s2d" else pool_s2d)(h)
 
-    def _kernel_block2(self, W, up, skip, site, cin, cout, mods):
+    def _kernel_block2(self, W, up, skip, site, cin, cout, mods, head=False):
         """A level-1/2 decoder site in padded s2d: the two-operand entry conv
-        over (up, skip), FiLM, conv_out."""
+        over (up, skip), FiLM, conv_out. ``head`` fuses the 1x1 tanh head
+        into conv_out and returns its unpadded s2d output instead."""
         gamma, beta = (S.tile_channel_params(v) for v in mods[site])
+        if self.fuse_chain and not head:
+            return conv3x3_s2d_chain3(
+                up, W[f"{cin}/kernel_up"], W[f"{cin}/bias"], W[f"noise_{site}/kernel"],
+                W[f"noise_{site}/bias"], gamma, beta, W[f"{cout}/kernel"], W[f"{cout}/bias"],
+                x2_padded=skip, w1b4=W[f"{cin}/kernel_skip"])
         h = conv3x3_s2d_fused2(up, skip, W[f"{cin}/kernel_up"], W[f"{cin}/kernel_skip"],
                                W[f"{cin}/bias"])
         h = conv3x3_s2d_fused(h, W[f"noise_{site}/kernel"], W[f"noise_{site}/bias"],
                               gamma, beta, mode="film")
+        if head:
+            return conv3x3_s2d_fused_head(h, W[f"{cout}/kernel"], W[f"{cout}/bias"],
+                                          W["gen_segmentation/kernel"],
+                                          W["gen_segmentation/bias"])
         return conv3x3_s2d_fused(h, W[f"{cout}/kernel"], W[f"{cout}/bias"])
 
     def _pixel_block(self, W, x, site, cin, cout, mods):
@@ -238,7 +266,10 @@ class FusedGenerator:
         # p1: the upsample kernel goes from padded s2d to padded s2d.
         site, cin, cout, _, deconv = self.dec_spec[2]
         up = deconv_s2d(h, W[f"{deconv}/w2"], W[f"{deconv}/bias4"].float())
-        h = self._kernel_block2(W, up, skip1, site, cin, cout, mods)
+        head_fused = self.fuse_head and self.cfg.n_out == 1
+        h = self._kernel_block2(W, up, skip1, site, cin, cout, mods, head=head_fused)
+        if head_fused:  # the kernel applied the head and its tanh
+            return S.d2s(h)
 
         # Head: 1x1 s2d conv in float32 on the interior, then d2s.
         kseg = W["gen_segmentation/kernel"]
@@ -251,7 +282,9 @@ class FusedGenerator:
 
 class FastGenerator(FusedGenerator):
     """Inference wrapper: builds the folded, transformed weights once on
-    ``device`` and exposes ``__call__(x, z)`` with the fused pools."""
+    ``device`` and exposes ``__call__(x, z)`` with the fused pools.
+    ``fuse_head`` and ``fuse_chain`` stay off, as in JAX; set them on the
+    instance to serve through K9 / K10."""
 
     def __init__(self, cfg: ModelConfig, variables: dict, compute_dtype=torch.bfloat16,
                  device="cuda"):

@@ -166,6 +166,178 @@ def test_fast_generator_on_cuda(cuda, n_out):
     assert float((out16 - ref).abs().max()) < 0.05
 
 
+# The serving options' kernels: (shape arguments); ragged n against the
+# chain's 8 x 8 output tiles, two column blocks at 4Cm = 256, an output
+# width that is no multiple of 32.
+CHAIN_CASES = {
+    "chain3_pool_s2d": dict(b=2, n=10, c4a=32, c4m=64, c4o=64, pool="s2d"),
+    "chain3_pool_pixel_wide": dict(b=2, n=12, c4a=64, c4m=256, c4o=256, pool="pixel"),
+    "chain3_two_operand": dict(b=2, n=9, c4a=96, c4b=32, c4m=64, c4o=40),
+    "chain2_relu_film": dict(b=2, n=10, c4a=32, c4m=64, c4o=64, modes=("relu", "film")),
+    "chain2_film_none": dict(b=2, n=11, c4a=64, c4m=64, c4o=32, modes=("film", "none")),
+    "head": dict(b=2, n=12, c4a=64, c4m=128, h4=4),
+}
+
+
+def _chain_case(a, dtype, device, seed=0):
+    """(launch counter name, kernel call, plain call, the sequential kernels'
+    call or None) on inputs made from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=g, device=device) * std + mean
+
+    def plane(c4):
+        return K.pad_s2d(randn(a["b"], a["n"], a["n"], c4)).to(dtype)
+
+    def w4(ci, co):
+        return randn(2, 2, ci, co, std=(4 * ci) ** -0.5).to(dtype)
+
+    x, c4a, c4m = plane(a["c4a"]), a["c4a"], a["c4m"]
+    if "h4" in a:
+        args = (x, w4(c4a, c4m), randn(c4m, std=0.1), randn(1, 1, c4m, a["h4"], std=0.3),
+                randn(a["h4"], std=0.1))
+        kernel = lambda: K.conv3x3_s2d_fused_head(*args)  # noqa: E731
+        kernel.args = args
+        return ("conv3x3_s2d_fused_head", kernel,
+                lambda: K.conv3x3_s2d_fused_head_plain(*args), None)
+    c4o = a["c4o"]
+    gamma, beta = randn(a["b"], c4m, std=0.3, mean=1.0), randn(a["b"], c4m, std=0.3)
+    if "modes" in a:
+        modes = a["modes"]
+        args = (x, w4(c4a, c4m), randn(c4m, std=0.1), w4(c4m, c4o), randn(c4o, std=0.1),
+                gamma, beta)
+
+        def sequential():
+            h = K._conv3x3_s2d_impl(*args[:3], gamma, beta, mode=modes[0])
+            return K._conv3x3_s2d_impl(h, *args[3:5], gamma, beta, mode=modes[1])
+
+        return ("conv3x3_s2d_chain2", lambda: K.conv3x3_s2d_chain2(*args, modes=modes),
+                lambda: K.conv3x3_s2d_chain2_plain(*args, modes=modes), sequential)
+    x2, w1b = (plane(a["c4b"]), w4(a["c4b"], c4m)) if "c4b" in a else (None, None)
+    args = (x, w4(c4a, c4m), randn(c4m, std=0.1), w4(c4m, c4m), randn(c4m, std=0.1), gamma,
+            beta, w4(c4m, c4o), randn(c4o, std=0.1))
+    pool = a.get("pool", "")
+
+    def sequential():
+        h = (K._conv3x3_s2d_impl(*args[:3]) if x2 is None
+             else K._conv2_impl(x, x2, args[1], w1b, args[2]))
+        h = K._conv3x3_s2d_impl(h, *args[3:7], mode="film")
+        if pool:
+            return K.conv3x3_s2d_fused_pool(h, *args[7:], pool=pool)
+        return K._conv3x3_s2d_impl(h, *args[7:])
+
+    return ("conv3x3_s2d_chain3",
+            lambda: K.conv3x3_s2d_chain3(*args, x2_padded=x2, w1b4=w1b, pool=pool),
+            lambda: K.conv3x3_s2d_chain3_plain(*args, x2, w1b, pool), sequential)
+
+
+def _head_rounding_slack(x_padded, w4, bias4, w_head4, rel=5e-6):
+    """K9 rounds its relu output to bf16: where a float32 value lies within
+    ``rel`` (1 + |y|) of a bf16 rounding boundary, the kernel's and the plain
+    version's sums (taken in other orders) may round it either way. Per
+    head logit: one bf16 ulp times the head weight's size for each such
+    value."""
+    y = torch.relu(K._matmul_taps(K._taps(x_padded), w4) + bias4.float())
+    tol = rel * (1 + y.abs())
+    either = (y - tol).to(torch.bfloat16) != (y + tol).to(torch.bfloat16)
+    ulp = torch.exp2(torch.floor(torch.log2((y + tol).clamp_min(1e-30))) - 7)
+    return (either * ulp) @ w_head4.reshape(w4.shape[-1], -1).to(torch.bfloat16).float().abs()
+
+
+def _ring_zero(plane):
+    n = plane.shape[1] - 2
+    ring = torch.ones(plane.shape[1:3], dtype=torch.bool, device=plane.device)
+    ring[1:n + 1, 1:n + 1] = False
+    return not plane[:, ring].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_chain_and_head_kernels_match_plain(cuda, case, dtype):
+    """Against the plain version (f32 atol 1e-4, for K9 plus its bf16
+    rounding ties; bf16 atol = rtol = 1e-2), rings exactly zero, and the
+    chains against the sequential kernels on the same inputs: bit for bit,
+    the chain summing each product in the engine's order and rounding where
+    the sequential kernels store."""
+    dt = getattr(torch, dtype)
+    a = CHAIN_CASES[case]
+    name, kernel, plain, sequential = _chain_case(a, dt, cuda)
+    before = K.launches()[name]
+    with torch.no_grad():
+        out = kernel()
+    torch.cuda.synchronize()
+    assert K.launches()[name] == before + 1
+    outs, refs = (out if isinstance(out, tuple) else (out,)), plain()
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    for j, (o, r) in enumerate(zip(outs, refs)):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        if name == "conv3x3_s2d_fused_head" and dt == torch.float32:
+            slack = _head_rounding_slack(*kernel.args[:4])
+            assert bool(((o - r).abs() <= TOL[dt] + slack).all())
+        else:
+            torch.testing.assert_close(o.float(), r.float(), atol=TOL[dt], rtol=TOL[dt])
+        if name != "conv3x3_s2d_fused_head" and not (j == 1 and a.get("pool") == "pixel"):
+            assert _ring_zero(o)
+    if sequential is not None:
+        seq = sequential()
+        seq = seq if isinstance(seq, tuple) else (seq,)
+        for o, r in zip(outs, seq):
+            torch.testing.assert_close(o, r, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_chain_and_head_wrappers_refuse_on_cuda(cuda):
+    x = K.pad_s2d(torch.randn(2, 8, 8, 48, device=cuda))
+    w = torch.randn(2, 2, 48, 48, device=cuda)
+    v, gb = torch.zeros(48, device=cuda), torch.zeros(2, 48, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        K.conv3x3_s2d_chain3(x, w, v, w, v, gb, gb, w, v)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        K.conv3x3_s2d_chain2(x, w, v, w, v, gb, gb)
+    x = K.pad_s2d(torch.randn(2, 8, 8, 32, device=cuda))
+    with pytest.raises(ValueError, match="4Co <= 256"):
+        K.conv3x3_s2d_fused_head(x, torch.zeros(2, 2, 32, 512, device=cuda),
+                                 torch.zeros(512, device=cuda),
+                                 torch.zeros(1, 1, 512, 4, device=cuda),
+                                 torch.zeros(4, device=cuda))
+    w = torch.randn(2, 2, 32, 32, device=cuda, requires_grad=True)
+    v, gb = torch.zeros(32, device=cuda), torch.zeros(2, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        K.conv3x3_s2d_chain3(x, w, v, w, v, gb, gb, w, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", ["fuse_chain", "fuse_head", "both"])
+def test_fast_generator_options_on_cuda(cuda, options):
+    """The serving forward with each option on the card against the port's
+    plain generator on the CPU, with the launches of the path."""
+    cfg = ModelConfig(image_size=32, first_fm=8)
+    rng = np.random.default_rng(7)
+    variables = init_generator(cfg, seed=7)
+    x = rng.uniform(size=(2, 32, 32, 1)).astype(np.float32)
+    z = rng.normal(size=(2, 32, 1)).astype(np.float32)
+    with torch.no_grad():
+        ref = load_flax_variables(GenUNet2D(cfg), variables).eval()(
+            torch.from_numpy(x), torch.from_numpy(z))
+    fast = FastGenerator(cfg, variables, torch.float32, cuda)
+    fast.fuse_chain = options in ("fuse_chain", "both")
+    fast.fuse_head = options in ("fuse_head", "both")
+    K.reset_launch_counts()
+    out = fast(torch.from_numpy(x).to(cuda), torch.from_numpy(z).to(cuda)).cpu()
+    want = {"fuse_chain": {"conv3x3_s2d_chain3": 4, "deconv_s2d": 1},
+            "fuse_head": {"conv3x3_s2d_fused": 7, "conv3x3_s2d_fused_pool": 2,
+                          "conv3x3_s2d_fused2": 2, "deconv_s2d": 1,
+                          "conv3x3_s2d_fused_head": 1},
+            "both": {"conv3x3_s2d_chain3": 3, "conv3x3_s2d_fused2": 1, "conv3x3_s2d_fused": 1,
+                     "conv3x3_s2d_fused_head": 1, "deconv_s2d": 1}}[options]
+    assert {k: v for k, v in K.launches().items() if v} == want
+    # The fused head rounds its input and weights to bf16 (~1e-2 in logits).
+    atol = 2e-4 if options == "fuse_chain" else 1e-2
+    torch.testing.assert_close(out, ref, atol=atol, rtol=0)
+
+
 def _grads(fn, inputs, need, seed):
     """fn's output and its gradients wrt the inputs flagged in ``need``,
     for one random cotangent."""
