@@ -4,7 +4,10 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the build of the CUDA kernels in ``depgan_tpu_torch/csrc/``.
+   and the build of the CUDA kernels in ``depgan_tpu_torch/csrc/``, with
+   the registers, stack frame and spill bytes that ptxas gave every
+   instantiation of the GEMM engine (``s2d_gemm``), the production ones
+   held to ENGINE_FIGURES.
 2. Kernels: each kernel against its plain PyTorch version at every shape of
    the serving forward and the training superstep (256x256 slices,
    first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
@@ -15,7 +18,12 @@
    bf16 rounding of a value within float32 error of a rounding tie can
    move: ``head_rounding_slack``), and the chains against the sequential
    kernels on the same inputs (K1 or K3 -> K1 film -> K1 or K2), whose
-   largest difference is printed (0: bit-identical).
+   largest difference is printed (0: bit-identical). K11 (``CONV5_PACKED``)
+   at the critic's five packed shapes, with its difference from K7 on the
+   same inputs; the probes: P1's four phases at a check shape (``full`` and
+   ``matmul_only`` equal to K1 bit for bit, ``stage_only``'s sums within
+   1e-5 of their absolute sum), P2 at the level-1/2 shapes with each block
+   count (bfloat16, equal to K1 bit for bit), P3 equal to its plain version.
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
    two synthetic 42-slice subjects against the plain float32 generator with
    the same noise (max abs diff < 0.05), once more with the UResNet softmax
@@ -29,19 +37,22 @@
    default path's.
 4. Backward: every autograd rule at the production shapes (float32, batch
    2) against autograd of its plain version, and the 5x5 conv's double
-   backward.
+   backward; the 5x5 rule at L0a and L0b and its double backward at L0a
+   again with ``CONV5_PACKED``, through K11, with its exact launches.
 5. Critic: ``FusedCritic``'s score, input gradient and the gradient
    penalty's parameter gradient (float32, image 256, batch 2, three seeds)
    against the plain ``DisC2DFCN1`` in float64 with ``create_graph``,
    within CRITIC_LIMIT relative L2; the plain critic in float32 reported
-   beside, and the fused critic in bfloat16 as a control that must fail.
+   beside, and the fused critic in bfloat16 as a control that must fail;
+   then all of it again with ``CONV5_PACKED``, through K11.
 6. Superstep: the fused superstep (float32, full width, batch 2, D = 2,
    k = 2, three seeds) against the plain one in float64 from the same
    state with the same draws: the same best noise, and the logged losses,
    the updates, the last gradients (Adam's first moment) and each
    parameter within SUPERSTEP_LIMITS; the plain float32 superstep reported
    beside, and two controls that must fail every limit (the fused
-   superstep in bfloat16, and without the gradient penalty).
+   superstep in bfloat16, and without the gradient penalty). One seed again
+   with ``CONV5_PACKED``, with its exact launch counts.
 7. UResNet: ``UResNetTrainer.step`` through K8 (float32, full width,
    ``dropout_mode='uresnet'``, batch 2, 3 steps, three seeds) against the
    plain path in float64 from the same state with the same noises and
@@ -66,15 +77,25 @@
    beside the bound, each timed on the device over launches captured in
    a CUDA graph; the serving forward's kernels at batch 42 and ms per
    served subject; K9 and K10 at the serving options' shapes per forward,
-   and K12 at four site shapes, at batch 42.
+   and K12 at four site shapes, at batch 42. ``gan_step_bench`` with
+   ``CONV5_PACKED`` beside the default in turns (default, packed, packed,
+   default) with exact launch counts, and K11's launches replayed shape by
+   shape beside K7's at the same shapes.
+10. Probes, for information: each probe's ``main`` at the JAX scripts'
+   default shapes (``depgan_tpu_torch/scripts``: P1 and P2 at batch 64, P3
+   at batch 256), with their launch counts, and each probe kernel timed
+   against its plain version, the library call and its bound.
 
-Prints one JSON line with the kernels, then as its last line
+Every phase prints its seconds. ``CONV5_PACKED`` is restored in a
+``finally`` after each phase that sets it. Prints one JSON line with the
+kernels, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 CUDA is absent or any check fails. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -141,6 +162,8 @@ GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d
 POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
 FILM_SRC = "depgan_tpu_torch/csrc/film_kernels.cu"
 CHAIN_SRC = "depgan_tpu_torch/csrc/chain_kernels.cu"
+WINDOW_SRC = "depgan_tpu_torch/csrc/window_kernels.cu"
+PROBE_SRC = "depgan_tpu_torch/csrc/probe_kernels.cu"
 
 # name -> (source, the Pallas kernel it replaces)
 KERNELS = {
@@ -156,7 +179,27 @@ KERNELS = {
     "conv3x3_s2d_fused_head": (GEMM_SRC, f"{PALLAS}:1145"),
     "conv3x3_s2d_chain3": (CHAIN_SRC, f"{PALLAS}:1741"),
     "conv3x3_s2d_chain2": (CHAIN_SRC, f"{PALLAS}:1511"),
+    "conv5x5_s2d_fused[packed]": (WINDOW_SRC, f"{PALLAS}:1940"),
+    "kernel_anatomy[full]": (PROBE_SRC, "scripts/kernel_anatomy.py:80"),
+    "kernel_anatomy[no_epi]": (PROBE_SRC, "scripts/kernel_anatomy.py:80"),
+    "kernel_anatomy[matmul_only]": (PROBE_SRC, "scripts/kernel_anatomy.py:90"),
+    "kernel_anatomy[stage_only]": (PROBE_SRC, "scripts/kernel_anatomy.py:97"),
+    "conv3x3_rowblk": (WINDOW_SRC, "scripts/rowblk_probe.py:125"),
+    "deint_reshape_idx": (PROBE_SRC, "scripts/packed_tap_probe.py:92"),
+    "deint_merge": (PROBE_SRC, "scripts/packed_tap_probe.py:101"),
 }
+PROBE_KERNELS = ("kernel_anatomy[full]", "kernel_anatomy[no_epi]", "kernel_anatomy[matmul_only]",
+                 "kernel_anatomy[stage_only]", "conv3x3_rowblk", "deint_reshape_idx",
+                 "deint_merge")
+# What ptxas gives the GEMM engine's production instantiations (dtype, N
+# tile) on the H100's toolchain, as it did before the engine had probe
+# phases (PERF.md section 6); the phases are compiled away from them, so
+# they must read the same.
+ENGINE_FIGURES = {
+    ("bfloat16", 64): (128, 32, 68, 84), ("bfloat16", 128): (128, 0, 0, 0),
+    ("bfloat16", 256): (126, 0, 0, 0), ("float32", 64): (128, 80, 144, 208),
+    ("float32", 128): (128, 24, 48, 72), ("float32", 256): (122, 0, 0, 0),
+}  # registers, stack frame bytes, spill store bytes, spill load bytes
 LAUNCHES_PER_FORWARD = {"conv3x3_s2d_fused": 8, "conv3x3_s2d_fused_pool": 2,
                         "conv3x3_s2d_fused2": 2, "deconv_s2d": 1}
 # The serving forward's kernel-selecting options (fuse_pool on): launches
@@ -204,6 +247,29 @@ TRAINING_CASES = (
     ("conv5x5_s2d_fused", "L1a dX 128->64", (64, 128, 64, "none")),
     ("conv5x5_s2d_fused", "L1b dX 128->128", (64, 128, 128, "none")),
 )
+# K11 (CONV5_PACKED) at the critic's shapes with 4C <= 64: the forward's
+# L0a, L0b and L1a and the transposes of L0a and L0b.
+PACKED_CASES = (
+    ("conv5x5_s2d_fused[packed]", "L0a 16->64", (128, 16, 64, "relu")),
+    ("conv5x5_s2d_fused[packed]", "L0b 64->64", (128, 64, 64, "relu")),
+    ("conv5x5_s2d_fused[packed]", "L1a 64->128", (64, 64, 128, "relu")),
+    ("conv5x5_s2d_fused[packed]", "L0a dX 64->16", (128, 64, 16, "none")),
+    ("conv5x5_s2d_fused[packed]", "L0b dX 64->64", (128, 64, 64, "none")),
+)
+# The probes' checks: P1 at a level-2 check shape (n, 4C, 4Co, reps), P2 at
+# the JAX probe's shapes and block counts (n, 4C, 4Co, n_blocks; bfloat16
+# only: a float32 window at these widths does not fit in shared memory), P3
+# at a small shape (n, m, c).
+PROBE_CASES = tuple((f"kernel_anatomy[{phase}]", "L2 check 128->128 reps 2", (64, 128, 128, 2))
+                    for phase in ("full", "no_epi", "matmul_only", "stage_only")) + tuple(
+    ("conv3x3_rowblk", f"{lvl} {c4}->{c4} nb {nb}", (n, c4, c4, nb))
+    for lvl, n, c4, blocks in (("L1", 128, 128, (5, 10)), ("L2", 64, 256, (3, 6)))
+    for nb in blocks) + (
+    ("deint_reshape_idx", "32 rows 16 col-pairs c 32", (32, 16, 32)),
+    ("deint_merge", "32 rows 16 col-pairs c 32", (32, 16, 32)))
+CASE_DTYPES = {"conv3x3_rowblk": (torch.bfloat16,)}
+# The probes' entry points at the JAX scripts' default batches.
+PROBE_BATCH = {"kernel_anatomy": 64, "rowblk_probe": 64, "packed_tap_probe": 256}
 # K9, K10 and K12 at the serving forward's shapes: K9 at p1's conv_out
 # (n, 4C, 4Co, Ho4); K10 at the four level-1/2 sites (n, 4Ca, 4Cb, 4Cm, 4Co,
 # pool); K12, which no path calls, at the same sites' conv_in + FiLM and
@@ -231,6 +297,26 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+@contextlib.contextmanager
+def conv5_packed():
+    """``CONV5_PACKED`` on inside the block, off again after it."""
+    from depgan_tpu_torch.ops import conv_s2d as K
+
+    K.CONV5_PACKED = True
+    try:
+        yield
+    finally:
+        K.CONV5_PACKED = False
+
+
+def packed(fn):
+    """``fn`` run with ``CONV5_PACKED`` on."""
+    def run():
+        with conv5_packed():
+            return fn()
+    return run
+
+
 def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
     """Inputs of one launch on the card, and callables on them: the kernel
     wrapper, the plain version and, where one PyTorch call computes the same
@@ -238,6 +324,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
     is timed); with the bytes and pixel-conv FLOPs the function needs and
     which outputs are padded planes."""
     from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.ops import probes as P
     from depgan_tpu_torch.ops import s2d_conv as S
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -330,12 +417,14 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
             case["library"] = lambda: torch.amax(K.unpad_s2d(x).unflatten(-1, (4, c4 // 4)), dim=3)
         out = (b, n // 2 + 2, n // 2 + 2, c4) if to_s2d else (b, n, n, c4 // 4)
         case["bytes"] = interior_bytes(x) + np.prod(out) * x.element_size()
-    elif name == "conv5x5_s2d_fused":
+    elif name in ("conv5x5_s2d_fused", "conv5x5_s2d_fused[packed]"):
         _, n, c4, co4, mode = problem
         w5 = randn(5, 5, c4 // 4, co4 // 4, std=(25 * c4 / 4) ** -0.5)
         w9, bias4 = S.conv5x5_to_s2d_kernel(w5, randn(co4 // 4, std=0.1))
         args = (plane(n, c4), w9.to(dtype).contiguous(), bias4)
         case["kernel"] = lambda: K._conv5_impl(*args, mode=mode)
+        if name == "conv5x5_s2d_fused[packed]":
+            case["k7"], case["kernel"] = case["kernel"], packed(case["kernel"])
         case["plain"] = lambda: K.conv5x5_s2d_fused_plain(*args, mode=mode)
         xp, wl, bl = pixel(args[0]), conv_weight(w5), bias4[:co4 // 4].to(dtype)
         case["library"] = lambda: F.conv2d(xp, wl, bl, padding=2)
@@ -414,6 +503,44 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         # Pixel-conv FLOPs of the convs; intermediates move no bytes.
         case["flops"] = 2.0 * b * (2 * n) ** 2 * 9 * macs
         case["bytes"] = interior_bytes(*inputs) + nbytes(*weights) + out_elems * x.element_size()
+    elif name.startswith("kernel_anatomy[") or name == "conv3x3_rowblk":
+        _, n, c4, co4, arg = problem  # arg: P1's reps, P2's block count
+        c, co = c4 // 4, co4 // 4
+        w3, b3 = randn(3, 3, c, co, std=(9 * c) ** -0.5), randn(co, std=0.1)
+        w4, bias4 = S.conv3x3_to_s2d_kernel(w3, b3)
+        x, w4 = plane(n, c4), w4.to(dtype).contiguous()
+        phase = name[len("kernel_anatomy["):-1] if name != "conv3x3_rowblk" else "full"
+        a = P.gathered_taps(x) if phase == "matmul_only" else None
+        if name == "conv3x3_rowblk":
+            case["kernel"] = lambda: P.conv3x3_rowblk(x, w4, bias4, arg)
+            case["plain"] = lambda: P.conv3x3_rowblk_plain(x, w4, bias4, arg)
+        else:
+            case["kernel"] = lambda: P.kernel_anatomy(phase, x, w4, bias4, arg, a)
+            case["plain"] = lambda: P.kernel_anatomy_plain(phase, x, w4, bias4, a)
+        if phase in ("full", "matmul_only"):  # K1's function, summed in K1's order
+            case["k1"] = lambda: K._conv3x3_s2d_impl(x, w4, bias4)
+        out_bytes = b * (n + 2) ** 2 * co4 * x.element_size()
+        reps = arg if name != "conv3x3_rowblk" else 1
+        case["flops"] = reps * 2.0 * b * (2 * n) ** 2 * 9 * c * co
+        case["bytes"] = interior_bytes(x) + nbytes(w4, bias4) + out_bytes
+        if phase in ("full", "no_epi"):
+            xp, wl = pixel(x), conv_weight(w3)
+            bl = b3.to(dtype) if phase == "full" else None
+            case["library"] = lambda: F.conv2d(xp, wl, bl, padding=1)
+        elif phase == "matmul_only":  # the GEMM over the dense taps
+            case["flops"] = reps * 2.0 * a.shape[0] * a.shape[1] * co4
+            case["bytes"] = nbytes(a, w4, bias4) + out_bytes
+        else:  # stage_only: the gather, and its sums within 1e-5 of their absolute sum
+            case["flops"], case["bytes"], case["padded"] = 0.0, interior_bytes(x), (False,)
+            case["limit"] = lambda: 1e-5 * P.kernel_anatomy_plain(phase, x.abs(), w4, bias4)
+    elif name in ("deint_reshape_idx", "deint_merge"):
+        _, n, m, c = problem
+        x = randn(b, n, 2 * m, c).to(dtype)
+        kind = name[len("deint_"):]
+        case["kernel"] = lambda: P.deint(x, kind)
+        case["plain"] = case["library"] = lambda: P.deint_plain(x)
+        case["padded"], case["limit"] = (False,), lambda: 0.0
+        case["bytes"] = 2 * nbytes(x)
     elif name == "film_residual":
         from depgan_tpu_torch.ops import film
 
@@ -475,11 +602,16 @@ def check_kernels() -> dict[str, float]:
     """Phase 2; returns the largest abs error of each kernel. K8's limits
     are its own: float32 within 2e-6 of the plain version on unit-normal
     data (one FMA's rounding), bfloat16 within one bf16 ulp of the plain
-    version computed in float32 and rounded once."""
+    version computed in float32 and rounded once. A case's own ``limit``
+    replaces the tolerance (P3: exact; P1 stage_only: 1e-5 of the absolute
+    sum); P1's full and matmul_only and P2 must equal K1 on the same inputs
+    bit for bit, and K11's difference from K7 is printed."""
     worst: dict[str, float] = {}
-    cases = SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES
-    for i, (name, label, problem) in enumerate(cases):
+    for i, (name, label, problem) in enumerate(KERNEL_CASES):
+        dtypes = CASE_DTYPES.get(name, (torch.float32, torch.bfloat16))
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            if dtype not in dtypes:
+                continue
             case = make_case(name, (BATCH_CHECK, *problem), dtype, seed=i)
             ref = case["plain"]()
             ref = ref if isinstance(ref, tuple) else (ref,)
@@ -501,6 +633,9 @@ def check_kernels() -> dict[str, float]:
                     exact = case["exact"]()
                     diff = (o.float() - exact).abs()
                     limit, bound = bf16_ulp(exact), "1 bf16 ulp of the float32 result"
+                elif "limit" in case:
+                    limit = case["limit"]()
+                    bound = "exact" if isinstance(limit, float) else "1e-5 of the absolute sum"
                 else:
                     limit = tol + (tol * r.float().abs() if dtype == torch.bfloat16 else 0.0)
                     bound = f"atol {tol:g}" + (f", rtol {tol:g}" if dtype == torch.bfloat16
@@ -517,12 +652,38 @@ def check_kernels() -> dict[str, float]:
             seq = ""
             if "sequential" in case:
                 seq = f", {against_sequential(name, label, dtype, out, case['sequential'])}"
+            for ref_kernel in ("k1", "k7"):
+                if ref_kernel in case:
+                    seq = f", {against_kernel(name, label, dtype, out[0], case, ref_kernel)}"
             print(f"kernel {name} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
                   f"({bound}){rings}{seq}")
     return worst
 
 
 SEQUENTIAL_DIFF: dict[str, float] = {}  # chain -> largest difference from its sequential kernels
+KERNEL_DIFF: dict[str, float] = {}  # K11 / P1 / P2 -> largest difference from K7 / K1
+KERNEL_CASES = (SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES + PACKED_CASES
+                + PROBE_CASES)
+
+
+def against_kernel(name: str, label: str, dtype, out, case: dict, ref_kernel: str) -> str:
+    """A kernel's output against the kernel that computes the same function
+    on the same inputs in the same order (K7 for K11, K1 for P1 and P2):
+    the largest abs difference, recorded in KERNEL_DIFF. P1 and P2 must
+    equal K1 bit for bit; K11 is held to the plain check's tolerance from
+    K7 and its difference printed."""
+    ref = case[ref_kernel]()
+    torch.cuda.synchronize()
+    diff = float((out.float() - ref.float()).abs().max())
+    what = "K1" if ref_kernel == "k1" else "K7"
+    if ref_kernel == "k1":
+        check(diff == 0.0, f"{name} {label} {dtype}: {diff:.3e} from K1, not bit-identical")
+    else:
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        check(bool(((out.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all()),
+              f"{name} {label} {dtype}: {diff:.3e} from K7")
+    KERNEL_DIFF[name] = max(KERNEL_DIFF.get(name, 0.0), diff)
+    return f"bit-identical to {what}" if diff == 0 else f"max abs {diff:.3e} from {what}"
 
 
 def against_sequential(name: str, label: str, dtype, out: tuple, sequential) -> str:
@@ -545,49 +706,31 @@ def against_sequential(name: str, label: str, dtype, out: tuple, sequential) -> 
         f"max abs {diff:.3e} from the sequential kernels")
 
 
-def time_ms(fn, iters: int) -> float:
-    """Device ms of one call of ``fn``: ``iters`` calls captured in one
-    CUDA graph after a warm-up call, the graph replayed twice between CUDA
-    events, the faster replay over ``iters``. The graph runs the launches
-    back to back, so a launch shorter than the host's dispatch (the
-    wrapper's checks, ctypes, the allocation) times the kernel and not the
-    host. Launch counts move only while the graph is captured."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    best = float("inf")
-    for _ in range(2):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / iters)
-    graph.reset()
-    return best
-
-
 def time_case(case: dict) -> dict:
-    """Kernel, plain and library ms of one launch, and its bound."""
-    k = time_ms(case["kernel"], 10)
-    p = time_ms(case["plain"], 3)
-    lib = None if case["library"] is None else time_ms(case["library"], 10)
+    """Kernel, plain and library ms of one launch (``cuda_graph_ms``: device
+    time over launches captured in a CUDA graph, so a launch shorter than
+    the host's dispatch times the kernel and not the host), and its bound."""
+    from depgan_tpu_torch.utils.profiling import cuda_graph_ms
+
+    k = cuda_graph_ms(case["kernel"], 10)
+    p = cuda_graph_ms(case["plain"], 3)
+    lib = None if case["library"] is None else cuda_graph_ms(case["library"], 10)
     t_ops, t_bytes = case["flops"] / case["peak"] * 1e3, case["bytes"] / PEAK_BYTES * 1e3
     return {"ms": k, "plain_ms": p, "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
             "ops_ms": t_ops, "bytes_ms": t_bytes}
 
 
+SHAPE_TIMES: dict[tuple, dict] = {}  # (kernel, problem) -> time_case of its last replay
+
+
 def replay(shapes: dict, dtype, what: str) -> dict[str, dict]:
     """Times every (kernel, problem) of a run with its count of launches
     and sums them by kernel: ms, plain ms, library ms (null where a launch
-    has no library call) and bound ms of that run's kernel launches."""
+    has no library call) and bound ms of that run's kernel launches. Each
+    shape's times are kept in SHAPE_TIMES."""
     totals: dict[str, dict] = {}
     for i, ((name, problem), count) in enumerate(sorted(shapes.items(), key=str)):
-        t = time_case(make_case(name, problem, dtype, seed=100 + i))
+        t = SHAPE_TIMES[name, problem] = time_case(make_case(name, problem, dtype, seed=100 + i))
         lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"time {what} {name} {problem} x{count}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {lib} ms, bound {t['bound_ms']:.4f} ms "
@@ -803,7 +946,7 @@ def check_backward() -> None:
                                   (plane(128, 64), randn(5, 5, 16, 4, std=0.05),
                                    randn(4, std=0.1))),
     }
-    for label, (fn, plain, inputs) in cases.items():
+    def against_plain(label, fn, plain, inputs):
         results = []
         for f in (fn, plain):
             leaves = [t.detach().clone().requires_grad_() for t in inputs]
@@ -820,18 +963,40 @@ def check_backward() -> None:
             worst = max(worst, close(a, b, 1e-4, f"{label} gradient {i}"))
         print(f"backward {label}: gradients within {worst:.2e} relative of autograd of plain")
 
-    # The 5x5 conv's double backward: grad of sum(dX^2) wrt w5 and x.
-    x, w5, b = plane(128, 16), randn(5, 5, 4, 16, std=0.1), randn(16, std=0.1)
-    r = randn(BATCH_GRAD, 130, 130, 64)
-    second = []
-    for conv in (K.conv5x5_s2d_fused, conv5_plain):
-        xx, ww = x.clone().requires_grad_(), w5.clone().requires_grad_()
-        (dx,) = torch.autograd.grad((conv(xx, ww, b) * r).sum(), xx, create_graph=True)
-        second.append(torch.autograd.grad((K.unpad_s2d(dx) ** 2).sum(), (xx, ww),
-                                          allow_unused=True))
-    ex = close(second[0][0], second[1][0], 1e-4, "K7 double backward wrt x")
-    ew = close(second[0][1], second[1][1], 1e-4, "K7 double backward wrt w5")
-    print(f"backward K7 double backward: wrt x {ex:.2e}, wrt w5 {ew:.2e} relative")
+    def double_backward(label, x, w5, b):
+        """grad of sum(dX^2) wrt w5 and x."""
+        r = randn(BATCH_GRAD, x.shape[1], x.shape[2], 4 * w5.shape[-1])
+        second = []
+        for conv in (K.conv5x5_s2d_fused, conv5_plain):
+            xx, ww = x.clone().requires_grad_(), w5.clone().requires_grad_()
+            (dx,) = torch.autograd.grad((conv(xx, ww, b) * r).sum(), xx, create_graph=True)
+            second.append(torch.autograd.grad((K.unpad_s2d(dx) ** 2).sum(), (xx, ww),
+                                              allow_unused=True))
+        ex = close(second[0][0], second[1][0], 1e-4, f"{label} double backward wrt x")
+        ew = close(second[0][1], second[1][1], 1e-4, f"{label} double backward wrt w5")
+        print(f"backward {label} double backward: wrt x {ex:.2e}, wrt w5 {ew:.2e} relative")
+
+    for label, (fn, plain, inputs) in cases.items():
+        against_plain(label, fn, plain, inputs)
+    double_backward("K7", plane(128, 16), randn(5, 5, 4, 16, std=0.1), randn(16, std=0.1))
+
+    # CONV5_PACKED: the forward, the transposed conv of dX and the double
+    # backward's convs at L0a and L0b take K11 (4C <= 64 each).
+    with conv5_packed():
+        K.reset_launch_counts()
+        against_plain("K11 relu L0a 16->64", K.conv5x5_s2d_fused, conv5_plain,
+                      (plane(128, 16), randn(5, 5, 4, 16, std=0.1), randn(16, std=0.1)))
+        against_plain("K11 relu L0b 64->64", K.conv5x5_s2d_fused, conv5_plain,
+                      (plane(128, 64), randn(5, 5, 16, 16, std=0.05), randn(16, std=0.1)))
+        double_backward("K11 L0a", plane(128, 16), randn(5, 5, 4, 16, std=0.1),
+                        randn(16, std=0.1))
+        launches = K.launches()
+    got = {k: v for k, v in launches.items() if v}
+    # Forward and dX of each rule check and of the double backward (whose
+    # second gradient reaches the dX conv through its weight only: its input
+    # cotangent is masked by the forward's output, which carries none).
+    check(got == {"conv5x5_s2d_fused[packed]": 6},
+          f"backward with CONV5_PACKED: launches {got}, expected 6 of K11 and no other")
 
 
 def rel_l2(a, b) -> float:
@@ -892,18 +1057,18 @@ def critic_errors(seed: int) -> dict[str, list[float]]:
             for tag, (score, grad, grads) in runs.items()}
 
 
-def check_critic() -> None:
+def check_critic(tag: str = "") -> None:
     """Phase 5: FusedCritic against the plain critic in float64, image IMAGE,
     over CRITIC_SEEDS. Float32 itself is 1e-4 to 5e-3 (relative L2) off
     float64 here: a 2x2 max-pool window whose two largest values lie within
     float32 rounding of each other sends its cotangent to the other one.
     The limit sits between the float32 readings and the bfloat16 control's,
     and the control must exceed it, so the check still sees a fault of the
-    size of a precision fault."""
+    size of a precision fault. ``tag`` names the run in the output."""
     worst, control = 0.0, float("inf")
     for seed in CRITIC_SEEDS:
         errs = critic_errors(seed)
-        print(f"critic seed {seed}: relative L2 against the plain critic in float64 (score, "
+        print(f"critic{tag} seed {seed}: relative L2 against the plain critic in float64 (score, "
               f"input gradient, the largest of {len(errs['fused float32']) - 2} GP parameter "
               f"gradients): " + "; ".join(f"{tag} {e[0]:.3e}, {e[1]:.3e}, {max(e[2:]):.3e}"
                                           for tag, e in errs.items()))
@@ -913,7 +1078,7 @@ def check_critic() -> None:
                                  f"limit {CRITIC_LIMIT:g}")
     check(control > CRITIC_LIMIT, f"the bfloat16 control reads {control:.3e}, within the "
                                   f"limit {CRITIC_LIMIT:g}: the check cannot tell it apart")
-    print(f"critic: fused float32 at most {worst:.3e}, bfloat16 control at least "
+    print(f"critic{tag}: fused float32 at most {worst:.3e}, bfloat16 control at least "
           f"{control:.3e}, limit {CRITIC_LIMIT:g} (relative L2 against float64)")
 
 
@@ -1086,6 +1251,24 @@ def check_superstep() -> None:
     hold_limits("superstep", summaries, SUPERSTEP_LIMITS, "fused")
 
 
+def check_superstep_packed() -> dict[str, int]:
+    """Phase 6 with ``CONV5_PACKED``: the first seed of SUPERSTEP_SEEDS held
+    as ``check_superstep`` holds each seed, and the fused superstep's exact
+    launches (D = 2, k = 2). Returns them."""
+    seed = SUPERSTEP_SEEDS[0]
+    with conv5_packed():
+        readings, ref_best = superstep_errors(seed)
+    print_superstep("superstep CONV5_PACKED", seed, readings, ref_best)
+    best = readings["fused"]["best"]
+    check(best == ref_best, f"CONV5_PACKED seed {seed} best noise index: fused {best}, "
+                            f"float64 {ref_best}")
+    hold_limits("superstep CONV5_PACKED", [{tag: r["summary"] for tag, r in readings.items()}],
+                SUPERSTEP_LIMITS, "fused")
+    launches, want = readings["fused"]["launches"], expected_superstep_launches(2, 2, packed=True)
+    check(launches == want, f"superstep CONV5_PACKED launches {launches}, expected {want}")
+    return launches
+
+
 def check_batch_bn_superstep() -> dict[str, int]:
     """Phase 8: the superstep with ``bn_mode='batch'`` through K8 against
     the plain float64 one over BATCH_BN_SEEDS, as phase 6 holds the fused
@@ -1221,9 +1404,9 @@ def check_uresnet_fit() -> dict[str, int]:
     return launches
 
 
-def expected_superstep_launches(d: int, k: int) -> dict[str, int]:
+def expected_superstep_launches(d: int, k: int, packed: bool = False) -> dict[str, int]:
     """Kernel launches of one fused superstep with D critic steps per
-    critic and k probe noises.
+    critic and k probe noises, with ``CONV5_PACKED`` when ``packed``.
 
     Generator forwards: 2D (critic loops) + k (probe) + 1 (its step), each
     K1 x10 (6 relu, 4 film), K3 x2, K4 x1, K5 x1, K6 x1; its backward adds
@@ -1235,6 +1418,19 @@ def expected_superstep_launches(d: int, k: int) -> dict[str, int]:
     K5 3, K6 3. The generator's step scores its output with both critics
     (8 K7, 2 K5, 2 K6) and takes their input gradient (8 K7); the probe
     scores k outputs with both critics. Frozen BatchNorm runs no K8.
+
+    With ``CONV5_PACKED`` a conv5 launch takes K11 when its input has 4C <=
+    64, the critic's levels being L0a 16 -> 64, L0b 64 -> 64, L1a 64 -> 128
+    and L1b 128 -> 128 (4C -> 4Co). A forward: L0a, L0b, L1a packed, L1b
+    dense. The input gradient's transposes read the levels' outputs: of L1b
+    and L1a dense (128), of L0b and L0a packed (64). A forward's backward
+    dX of L0b packed, of L1a and L1b dense. The chain's dX read the
+    transposes' outputs, the levels' inputs: of L0a's, L0b's and L1a's
+    transposes packed (16, 64, 64), of L1b's dense. So a critic step is 16
+    packed and 10 dense (3 + 3 + 3 forwards, 2 + 2 transposes, 1 + 1 and
+    2 + 2 forward dX, 3 + 1 chain); the generator's step 10 and 6 (2
+    forwards, 2 x (2 + 2) input gradients: dX of L0a and L0b packed); a
+    probe score 3 and 1.
     """
     gen_fwd, steps, probe = 2 * d + k + 1, 2 * d, 2 * k
     counts = dict.fromkeys(KERNELS, 0)  # no other kernel, K2, K8 and K9-K12 included
@@ -1243,6 +1439,9 @@ def expected_superstep_launches(d: int, k: int) -> dict[str, int]:
                    "pool_to_s2d": gen_fwd + 3 * steps + probe + 2,
                    "pool_s2d": gen_fwd + 3 * steps + probe + 2,
                    "conv5x5_s2d_fused": 26 * steps + 4 * probe + 16})
+    if packed:
+        counts.update({"conv5x5_s2d_fused[packed]": 16 * steps + 3 * probe + 10,
+                       "conv5x5_s2d_fused": 10 * steps + probe + 6})
     return counts
 
 
@@ -1290,6 +1489,83 @@ def profile_once(fn, what: str, unprofiled_ms: float) -> None:
         print(f"profile {what}: {ms:9.3f} ms  x{count:<5d} {name[:90]}")
 
 
+def check_engine_build(_cuda) -> None:
+    """Phase 1's build check: what ptxas gave every instantiation of the
+    engine (``s2d_gemm``) and of the window kernels, from the report kept
+    beside the library; the production engine held to ENGINE_FIGURES."""
+    from depgan_tpu_torch.scripts import engine_registers
+
+    log = _cuda.ptxas_log()
+    rows = engine_registers.engine_figures(log)
+    for line in engine_registers.format_rows(rows):
+        print(f"build: {line}")
+    for name, fig in _cuda.ptxas_figures(log).items():
+        if "window_conv" in name:
+            print(f"build: {name}: {fig.get('registers')} registers, {fig.get('stack')} bytes "
+                  f"stack frame, {fig.get('spill_stores')} / {fig.get('spill_loads')} bytes "
+                  f"spill stores / loads")
+    production = {(dt, bn): (f.get("registers"), f.get("stack"), f.get("spill_stores"),
+                             f.get("spill_loads"))
+                  for (dt, bn, phase), f in rows.items() if phase == "production"}
+    check(production == ENGINE_FIGURES,
+          f"the engine's production instantiations read {production}, expected {ENGINE_FIGURES}")
+
+
+def bench_packed_beside_default(benchmarks, bench: dict, smi: str) -> dict:
+    """Phase 9: ``gan_step_bench`` with ``CONV5_PACKED`` beside the default
+    run ``bench``, in turns (default, packed, packed, default), each with
+    its exact launches. Returns the first packed run."""
+    runs = {"default": [bench], "packed": []}
+    for tag in ("packed", "packed", "default"):
+        with conv5_packed() if tag == "packed" else contextlib.nullcontext():
+            b = benchmarks.gan_step_bench(BATCH_TRAIN, D_ITERS, K_NOISE)
+        want = expected_superstep_launches(D_ITERS, K_NOISE, packed=tag == "packed")
+        check(b["launches"] == want, f"superstep {tag} launches {b['launches']}, expected {want}")
+        runs[tag].append(b)
+    print(f"time training CONV5_PACKED on {smi}: gan_step_bench batch {BATCH_TRAIN}, D {D_ITERS}, "
+          f"k {K_NOISE}, ms per superstep in turns default, packed, packed, default: "
+          + "; ".join(f"{tag} " + ", ".join(
+              f"{b['ms_per_superstep']:.2f} (reps {', '.join(f'{r:.2f}' for r in b['reps_ms'])})"
+              for b in bs) for tag, bs in runs.items())
+          + f"; packed launches {runs['packed'][0]['launches']}")
+    return runs["packed"][0]
+
+
+def run_probes(smi: str) -> tuple[dict, dict]:
+    """Phase 10: each probe's ``main`` at PROBE_BATCH, its launches counted
+    from 0; then each probe kernel timed against its plain version, the
+    library call and its bound at the main's shapes. Returns the launches
+    and the timings by kernel."""
+    from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.scripts import kernel_anatomy, packed_tap_probe, rowblk_probe
+
+    K.reset_launch_counts()
+    anatomy = kernel_anatomy.main([str(PROBE_BATCH["kernel_anatomy"])])
+    rowblk_probe.main([str(PROBE_BATCH["rowblk_probe"])])
+    packed_tap_probe.main([str(PROBE_BATCH["packed_tap_probe"])])
+    launches = K.launches()
+    for name in PROBE_KERNELS:
+        check(launches[name] > 0, f"probe kernel {name} was not launched by its entry point")
+    print(f"probes on {smi}: launches {({k: v for k, v in launches.items() if v})}")
+    b = PROBE_BATCH["kernel_anatomy"]
+    timing = {}
+    for phase in ("full", "no_epi", "matmul_only", "stage_only"):
+        name = f"kernel_anatomy[{phase}]"
+        timing.update(replay({(name, (b, 128, 128, 128, 1)): 1}, torch.bfloat16,
+                             f"probe kernel_anatomy batch {b} reps 1"))
+        timing[name]["marginal_ms"] = anatomy["marginal_ms"][phase]
+    b = PROBE_BATCH["rowblk_probe"]
+    timing.update(replay({("conv3x3_rowblk", (b, n, c4, c4, nb)): 1
+                          for n, c4, blocks in ((128, 128, (5, 10)), (64, 256, (3, 6)))
+                          for nb in blocks}, torch.bfloat16, f"probe rowblk batch {b}"))
+    b = PROBE_BATCH["packed_tap_probe"]
+    timing.update(replay({(f"deint_{kind}", (b, n, m, c)): 1
+                          for kind in ("reshape_idx", "merge")
+                          for n, m, c in ((256, 128, 32), (128, 64, 64))}, torch.bfloat16,
+                         f"probe deinterleave batch {b}"))
+    return launches, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1300,6 +1576,13 @@ def main() -> int:
     from depgan_tpu_torch.config import ModelConfig
     from depgan_tpu_torch.ops import _cuda
     from depgan_tpu_torch.ops import conv_s2d as K
+
+    start_of = [time.perf_counter()]
+
+    def phase_done(what: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {what} ({now - start_of[0]:.1f} s)")
+        start_of[0] = now
 
     # Phase 1: environment and build.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1314,12 +1597,16 @@ def main() -> int:
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, kernels built and loaded in {build_s:.1f} s "
           f"({_cuda.library_path().name})")
+    check_engine_build(_cuda)
+    phase_done("build: passed")
 
     # Phase 2: each kernel against its plain version.
     worst = check_kernels()
-    n_cases = len(SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES)
-    print(f"phase kernels: {2 * n_cases} checks passed; chains against the sequential kernels: "
-          + ", ".join(f"{k} max abs {v:.3e}" for k, v in SEQUENTIAL_DIFF.items()))
+    n_checks = sum(len(CASE_DTYPES.get(name, (0, 0))) for name, _, _ in KERNEL_CASES)
+    phase_done(f"kernels: {n_checks} checks passed; chains against the sequential kernels: "
+               + ", ".join(f"{k} max abs {v:.3e}" for k, v in SEQUENTIAL_DIFF.items())
+               + "; against K7 or K1: "
+               + ", ".join(f"{k} max abs {v:.3e}" for k, v in KERNEL_DIFF.items()))
 
     # Phase 3: the serving path, counting kernel launches.
     gan = ModelConfig(image_size=256, first_fm=32, n_input_channels=1)
@@ -1336,22 +1623,29 @@ def main() -> int:
     print(f"phase serving: {forwards} forwards, max abs diff tanh {gan_diff:.4e}, "
           f"softmax {uresnet_diff:.4e}, launches {serving}")
     options, option_ms = check_serving_options(gan, seed=2, smi=smi)
-    print("phase serving options: passed")
+    phase_done("serving and serving options: passed")
 
-    # Phases 4-6: the training path's correctness, float32.
+    # Phases 4-6: the training path's correctness, float32, on the default
+    # path and with CONV5_PACKED.
     check_backward()
-    print("phase backward: passed")
+    phase_done("backward: passed")
     check_critic()
-    print("phase critic: passed")
+    K.reset_launch_counts()
+    with conv5_packed():
+        check_critic(" CONV5_PACKED")
+    critic_packed = K.launches()
+    check(critic_packed["conv5x5_s2d_fused[packed]"] > 0, "the critic phase ran no K11")
+    phase_done("critic: passed")
     check_superstep()
-    print("phase superstep: passed")
+    check_superstep_packed()
+    phase_done("superstep: passed")
 
     # Phases 7-8: the training mode of the generator through K8.
     check_uresnet()
     uresnet_fit = check_uresnet_fit()
     print("phase uresnet: passed")
     batch_bn = check_batch_bn_superstep()
-    print("phase batch-BN superstep: passed")
+    phase_done("uresnet and batch-BN superstep: passed")
 
     # Phase 9: timing, for information (TF32 stays off: the float32 weight
     # gradients of the backward run in full float32).
@@ -1363,10 +1657,21 @@ def main() -> int:
           f"k {K_NOISE}: {bench['ms_per_superstep']:.2f} ms per superstep (reps "
           f"{', '.join(f'{r:.2f}' for r in bench['reps_ms'])}), peak memory "
           f"{bench['peak_memory_gib']:.2f} GiB, errG {bench['errG']:.4f}, launches {superstep}")
+    bench_packed = bench_packed_beside_default(benchmarks, bench, smi)
+    superstep_packed = bench_packed["launches"]
     run = benchmarks.gan_superstep(BATCH_TRAIN, D_ITERS, K_NOISE, seed=1)
     run()
     profile_once(run, "one superstep", bench["ms_per_superstep"])
     training = replay(bench["shapes"], torch.bfloat16, f"superstep batch {BATCH_TRAIN}")
+    packed_shapes = {key: count for key, count in bench_packed["shapes"].items()
+                     if key[0] == "conv5x5_s2d_fused[packed]"}
+    training_packed = replay(packed_shapes, torch.bfloat16,
+                             f"superstep CONV5_PACKED batch {BATCH_TRAIN}")
+    k7_same = sum(count * SHAPE_TIMES["conv5x5_s2d_fused", problem]["ms"]
+                  for (_, problem), count in packed_shapes.items())
+    k11 = training_packed["conv5x5_s2d_fused[packed]"]["ms"]
+    print(f"time K11 per superstep on {smi}: {k11:.3f} ms over {sum(packed_shapes.values())} "
+          f"launches, K7 at the same shapes and counts {k7_same:.3f} ms")
     serving_shapes = {}
     for name, label, problem in SERVING_CASES:
         serving_shapes[name, (BATCH_SERVE, *problem)] = (
@@ -1412,6 +1717,11 @@ def main() -> int:
           f"slice-forwards/s, kernels {sum(t['ms'] for t in per_forward.values()):.3f} ms "
           f"per forward; with the options, ms per forward: "
           + ", ".join(f"{o} {t:.3f}" for o, t in option_ms.items()))
+    phase_done("timing: done")
+
+    # Phase 10: the probes' entry points.
+    probes_launches, probe_timing = run_probes(smi)
+    phase_done("probes: passed")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1419,6 +1729,20 @@ def main() -> int:
             timing, unit = film["float32"], f"per UResNet training step, batch {BATCH_TRAIN}, float32"
         elif name == "conv3x3_s2d_chain2":
             timing, unit = per_option[name], "4 launches at the generator's site shapes"
+        elif name == "conv5x5_s2d_fused[packed]":
+            timing, unit = training_packed[name], "per superstep with CONV5_PACKED"
+        elif name.startswith("kernel_anatomy["):
+            timing = probe_timing[name]
+            unit = (f"one launch, reps 1, batch {PROBE_BATCH['kernel_anatomy']}, n 128, 4C = 4Co "
+                    f"= 128; marginal_ms: (t(5) - t(1)) / 4, each rep L2-fed")
+        elif name == "conv3x3_rowblk":
+            timing = probe_timing[name]
+            unit = (f"4 launches: L1 nb 5 and 10, L2 nb 3 and 6, batch "
+                    f"{PROBE_BATCH['rowblk_probe']}")
+        elif name.startswith("deint_"):
+            timing = probe_timing[name]
+            unit = (f"2 launches: the L1/L2 and L2/L3 boundaries, batch "
+                    f"{PROBE_BATCH['packed_tap_probe']}")
         elif name in per_option:
             timing, unit = per_option[name], "per serving forward with the option"
         elif name in training:
@@ -1426,15 +1750,17 @@ def main() -> int:
         else:
             timing, unit = per_forward[name], "per serving forward"
         runs = {"serving": serving[name], "serving_options": options[name],
-                "superstep": superstep[name], "uresnet_fit": uresnet_fit[name],
-                "batch_bn_superstep": batch_bn[name]}
+                "superstep": superstep[name], "superstep_packed": superstep_packed[name],
+                "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name],
+                "probes": probes_launches[name]}
+        extra = {"marginal_ms": timing["marginal_ms"]} if "marginal_ms" in timing else {}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(runs.values()), **{f"launches_{k}": v for k, v in runs.items()},
             "max_abs_err": worst[name],
             "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": "bytes" if timing["bytes_ms"] >= timing["ops_ms"] else "operations",
-            "library_ms": timing["library_ms"], "unit": unit})
+            "library_ms": timing["library_ms"], "unit": unit, **extra})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

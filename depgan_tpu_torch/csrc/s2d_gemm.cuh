@@ -50,6 +50,17 @@
 // planes, near the H100's bf16 ridge; the critic's 5x5 levels (K = 144 to
 // 1152, 4Co = 16 to 128) sit below it. This version has no wgmma or TMA, so
 // it stays well below both roofs (PERF.md).
+//
+// A Phase template argument splits the kernel for timing (the counterpart
+// of scripts/kernel_anatomy.py's variants, P1). Its default, kProduction, is
+// the kernel above, and every production launch takes it; the probe phases
+// repeat their work `reps` times in one launch: kProbeFull the whole kernel,
+// kProbeNoEpi the gather and products with a raw store (no bias, no relu),
+// kProbeMatmulOnly the products over a pre-gathered dense A (the rows of
+// the gathered taps), so its mainloop loads contiguous tiles, and
+// kProbeStageOnly the gather into shared memory alone, which writes the sum
+// of each block's staged tiles in place of an output. A rep re-reads the
+// block's own tile of the input, so from the second rep on it comes from L2.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,11 +68,20 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace depgan {
 
 enum Gather : int { kGatherConv3x3 = 0, kGatherDeconv = 1, kGatherConv5x5 = 2 };
 enum Epilogue : int { kRelu = 0, kFilm = 1, kNone = 2, kHead = 3 };
 enum PoolMode : int { kPoolNone = 0, kPoolPixel = 1, kPoolS2d = 2 };
+enum Phase : int {
+  kProduction = 0,
+  kProbeFull = 1,
+  kProbeNoEpi = 2,
+  kProbeMatmulOnly = 3,
+  kProbeStageOnly = 4
+};
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBK = 32;        // GEMM depth of one shared-memory k-tile
@@ -113,6 +133,17 @@ struct Problem {
   float* head_out;              // (batch, n, n, h4): tanh(head), unpadded
   int h4;
 };
+
+// What a probe phase takes besides the problem.
+template <typename T>
+struct ProbeProblem : Problem<T> {
+  int reps;          // repeats of the phase in one launch
+  const T* a_dense;  // kProbeMatmulOnly: (batch*n*n, k) rows of the gathered taps
+  float* sums;       // kProbeStageOnly: one sum of staged A values per block row
+};
+
+template <typename T, int PHASE>
+using PhaseProblem = std::conditional_t<PHASE == kProduction, Problem<T>, ProbeProblem<T>>;
 
 // The engine's blocks own 256 x 64, 128 x 128 or 64 x 256 outputs; the
 // chained kernels take 64 x 128.
@@ -255,8 +286,8 @@ __device__ __forceinline__ void zero_ring(T* plane, int batch, int side, int ch,
   }
 }
 
-template <typename T, int BN>
-__global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
+template <typename T, int BN, int PHASE = kProduction>
+__global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const PhaseProblem<T, PHASE> pr) {
   using Tl = Tile<T, BN>;
   constexpr int BM = Tl::BM, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC, VEC = Tl::VEC;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -269,7 +300,8 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
   {
     const int64_t start = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + tid;
     const int64_t stride = (int64_t)gridDim.x * gridDim.y * kThreads;
-    if (pr.epilogue != kHead) zero_ring(pr.out, pr.batch, side, pr.co4, start, stride);
+    if (PHASE != kProbeStageOnly && pr.epilogue != kHead)
+      zero_ring(pr.out, pr.batch, side, pr.co4, start, stride);
     if (pr.pool == kPoolS2d) zero_ring(pr.pooled, pr.batch, n / 2 + 2, pr.co4, start, stride);
   }
 
@@ -342,16 +374,25 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
     for (int i = 0; i < A_ITERS; ++i) {
       const int v = tid + i * kThreads;
       if (v >= A_VECS) break;
-      const bool ok = cur_k < op.k && a_pix[i] >= 0;
-      cp_async16(As + (v / VPR) * LDA + a_kv,
-                 ok ? op.x + (int64_t)a_pix[i] * op.c4 + a_goff[i] + off : op.x, ok);
+      if constexpr (PHASE == kProbeMatmulOnly) {  // contiguous rows of the dense A
+        const int64_t m = m0 + v / VPR;
+        const bool ok = cur_k < op.k && m < M;
+        cp_async16(As + (v / VPR) * LDA + a_kv, ok ? pr.a_dense + m * op.k + cur_k : pr.a_dense,
+                   ok);
+      } else {
+        const bool ok = cur_k < op.k && a_pix[i] >= 0;
+        cp_async16(As + (v / VPR) * LDA + a_kv,
+                   ok ? op.x + (int64_t)a_pix[i] * op.c4 + a_goff[i] + off : op.x, ok);
+      }
     }
+    if constexpr (PHASE != kProbeStageOnly) {  // kProbeStageOnly: the gather alone
 #pragma unroll
-    for (int j = 0; j < B_ITERS; ++j) {
-      const int v = tid + j * kThreads, kr = v / BPR, col = n0 + (v % BPR) * VEC;
-      const bool ok = k0 + kr < op.k && col < pr.co4;
-      cp_async16(Bs + kr * LDB + (v % BPR) * VEC,
-                 ok ? op.w + (int64_t)(k0 + kr) * pr.co4 + col : op.w, ok);
+      for (int j = 0; j < B_ITERS; ++j) {
+        const int v = tid + j * kThreads, kr = v / BPR, col = n0 + (v % BPR) * VEC;
+        const bool ok = k0 + kr < op.k && col < pr.co4;
+        cp_async16(Bs + kr * LDB + (v % BPR) * VEC,
+                   ok ? op.w + (int64_t)(k0 + kr) * pr.co4 + col : op.w, ok);
+      }
     }
     cur_k += kBK;
     if (pr.gather == kGatherConv3x3) {
@@ -363,122 +404,163 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const Problem<T> pr) {
     }
   };
 
-  Mma<T, BN> mma;
-  mma.zero();
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < kt_total) load_tile(s, s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < kt_total; ++t) {
-    cp_async_wait<kStages - 2>();  // k-tile t has landed ...
-    __syncthreads();               // ... for every thread, and tile t-1 is consumed
-    const T* As = stages + (t % kStages) * Tl::kStageElems;
-    mma.step(As, As + BM * LDA);
-    if (t + kStages - 1 < kt_total) load_tile(t + kStages - 1, (t + kStages - 1) % kStages);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  mma.store(Cs);
-
-  // Per-row offsets, once per block: the output position (-1 past M), the
-  // FiLM trunk (the input at the same position), the gamma/beta row and
-  // the pooled position.
-  __shared__ int64_t row_out[BM], row_trunk[BM], row_pool[BM];
-  __shared__ int row_gb[BM];
-  if (tid < BM) {
-    const int64_t m = m0 + tid;
-    row_out[tid] = -1;
-    if (m < M) {
-      const int b = (int)(m / nn_img), rem = (int)(m % nn_img), y = rem / n, x = rem % n;
-      const int half = n / 2 + 2, cp = pr.co4 / 4;
-      row_out[tid] = (((int64_t)b * side + y + 1) * side + x + 1) * pr.co4;
-      row_trunk[tid] = (((int64_t)b * pr.p_in + y + 1) * pr.p_in + x + 1) * pr.op[0].c4;
-      row_gb[tid] = b * pr.co4;
-      row_pool[tid] = pr.pool == kPoolPixel
-                          ? (((int64_t)b * n + y) * n + x) * cp
-                          : (((int64_t)b * half + y / 2 + 1) * half + x / 2 + 1) * pr.co4 +
-                                (2 * (y & 1) + (x & 1)) * cp;
+  int reps = 1;
+  if constexpr (PHASE != kProduction) reps = pr.reps;
+  for (int rep = 0; rep < reps; ++rep) {
+    if constexpr (PHASE != kProduction) {
+      if (rep > 0) {  // the last rep's epilogue has read Cs, which aliases the stages
+        __syncthreads();
+        cursor_start(0);
+      }
     }
-  }
-  __syncthreads();
-
-  // VEC consecutive columns a thread: one 16-byte store, one 16-byte trunk load.
-  union Pack {
-    uint4 u;
-    T v[VEC];
-  };
-  constexpr int VPRow = BN / VEC;
-  for (int e = tid; e < BM * VPRow; e += kThreads) {
-    const int r = e / VPRow, cc = (e % VPRow) * VEC, col = n0 + cc;
-    const int64_t ro = row_out[r];
-    if (ro < 0 || col >= pr.co4) continue;
-    float v[VEC];
+    Mma<T, BN> mma;
+    mma.zero();
+    float staged = 0.f;  // kProbeStageOnly: this thread's staged A values, summed
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = Cs[r * LDC + cc + j] + pr.bias[col + j];
-    if (pr.epilogue == kRelu || pr.epilogue == kHead) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) v[j] = fmaxf(v[j], 0.f);
-    } else if (pr.epilogue == kFilm) {  // FiLM site, the trunk being the input
-      Pack t;
-      t.u = *reinterpret_cast<const uint4*>(pr.op[0].x + row_trunk[r] + col);
-      const int gb = row_gb[r] + col;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        v[j] = film_site(v[j], pr.gamma[gb + j], pr.beta[gb + j], to_f32(t.v[j]));
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < kt_total) load_tile(s, s);
+      cp_async_commit();
     }
-    if (pr.epilogue == kHead) {  // the head reads the relu output rounded to bf16
+    for (int t = 0; t < kt_total; ++t) {
+      cp_async_wait<kStages - 2>();  // k-tile t has landed ...
+      __syncthreads();               // ... for every thread, and tile t-1 is consumed
+      const T* As = stages + (t % kStages) * Tl::kStageElems;
+      if constexpr (PHASE == kProbeStageOnly) {  // the thread's own copies have landed
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) Cs[r * LDC + cc + j] = __bfloat162float(__float2bfloat16(v[j]));
+        for (int i = 0; i < A_ITERS; ++i) {
+          const int v = tid + i * kThreads;
+          if (v >= A_VECS) break;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) staged += to_f32(As[(v / VPR) * LDA + a_kv + j]);
+        }
+      } else {
+        mma.step(As, As + BM * LDA);
+      }
+      if (t + kStages - 1 < kt_total) load_tile(t + kStages - 1, (t + kStages - 1) % kStages);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (PHASE == kProbeStageOnly) {  // one sum a block row, in a fixed order
+      __shared__ float warp_sums[kThreads / 32];
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) staged += __shfl_xor_sync(0xffffffffu, staged, o);
+      if (tid % 32 == 0) warp_sums[tid / 32] = staged;
+      __syncthreads();
+      if (tid == 0 && blockIdx.y == 0) {
+        float sum = 0.f;
+        for (int w = 0; w < kThreads / 32; ++w) sum += warp_sums[w];
+        pr.sums[blockIdx.x] = sum;
+      }
       continue;
     }
-    Pack q;
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) q.v[j] = from_f32<T>(v[j]);
-    *reinterpret_cast<uint4*>(pr.out + ro + col) = q.u;
-    if (pr.pool != kPoolNone) {  // pool the stored values
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) Cs[r * LDC + cc + j] = to_f32(q.v[j]);
-    }
-  }
+    mma.store(Cs);
 
-  if (pr.epilogue == kHead) {  // the launcher guarantees n0 == 0 and BN >= co4
-    __syncthreads();
-    for (int e = tid; e < BM * pr.h4; e += kThreads) {
-      const int r = e / pr.h4, h = e % pr.h4;
-      if (row_out[r] < 0) continue;
-      const float* row = Cs + r * LDC;
-      float acc = 0.f;
-      for (int c = 0; c < pr.co4; ++c)
-        acc = fmaf(row[c], __bfloat162float(pr.w_head[c * pr.h4 + h]), acc);
-      pr.head_out[(m0 + r) * pr.h4 + h] = tanhf(acc + pr.b_head[h]);
+    // Per-row offsets, once per block: the output position (-1 past M), the
+    // FiLM trunk (the input at the same position), the gamma/beta row and
+    // the pooled position.
+    __shared__ int64_t row_out[BM], row_trunk[BM], row_pool[BM];
+    __shared__ int row_gb[BM];
+    if (tid < BM) {
+      const int64_t m = m0 + tid;
+      row_out[tid] = -1;
+      if (m < M) {
+        const int b = (int)(m / nn_img), rem = (int)(m % nn_img), y = rem / n, x = rem % n;
+        const int half = n / 2 + 2, cp = pr.co4 / 4;
+        row_out[tid] = (((int64_t)b * side + y + 1) * side + x + 1) * pr.co4;
+        row_trunk[tid] = (((int64_t)b * pr.p_in + y + 1) * pr.p_in + x + 1) * pr.op[0].c4;
+        row_gb[tid] = b * pr.co4;
+        row_pool[tid] = pr.pool == kPoolPixel
+                            ? (((int64_t)b * n + y) * n + x) * cp
+                            : (((int64_t)b * half + y / 2 + 1) * half + x / 2 + 1) * pr.co4 +
+                                  (2 * (y & 1) + (x & 1)) * cp;
+      }
     }
-  }
+    __syncthreads();
 
-  if (pr.pool != kPoolNone) {  // the launcher guarantees n0 == 0 and BN >= co4
-    __syncthreads();
-    const int cp = pr.co4 / 4;
-    for (int e = tid; e < BM * cp; e += kThreads) {
-      const int r = e / cp, ch = e % cp;
-      if (row_out[r] < 0) continue;
-      const float* row = Cs + r * LDC;
-      pr.pooled[row_pool[r] + ch] = from_f32<T>(
-          fmaxf(fmaxf(row[ch], row[cp + ch]), fmaxf(row[2 * cp + ch], row[3 * cp + ch])));
+    // VEC consecutive columns a thread: one 16-byte store, one 16-byte trunk load.
+    union Pack {
+      uint4 u;
+      T v[VEC];
+    };
+    constexpr int VPRow = BN / VEC;
+    for (int e = tid; e < BM * VPRow; e += kThreads) {
+      const int r = e / VPRow, cc = (e % VPRow) * VEC, col = n0 + cc;
+      const int64_t ro = row_out[r];
+      if (ro < 0 || col >= pr.co4) continue;
+      float v[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        if constexpr (PHASE == kProbeNoEpi) {
+          v[j] = Cs[r * LDC + cc + j];  // the raw sums: no bias, and the launch asks no relu
+        } else {
+          v[j] = Cs[r * LDC + cc + j] + pr.bias[col + j];
+        }
+      }
+      if (pr.epilogue == kRelu || pr.epilogue == kHead) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[j] = fmaxf(v[j], 0.f);
+      } else if (pr.epilogue == kFilm) {  // FiLM site, the trunk being the input
+        Pack t;
+        t.u = *reinterpret_cast<const uint4*>(pr.op[0].x + row_trunk[r] + col);
+        const int gb = row_gb[r] + col;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          v[j] = film_site(v[j], pr.gamma[gb + j], pr.beta[gb + j], to_f32(t.v[j]));
+      }
+      if (pr.epilogue == kHead) {  // the head reads the relu output rounded to bf16
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          Cs[r * LDC + cc + j] = __bfloat162float(__float2bfloat16(v[j]));
+        continue;
+      }
+      Pack q;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) q.v[j] = from_f32<T>(v[j]);
+      *reinterpret_cast<uint4*>(pr.out + ro + col) = q.u;
+      if (pr.pool != kPoolNone) {  // pool the stored values
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) Cs[r * LDC + cc + j] = to_f32(q.v[j]);
+      }
     }
-  }
+
+    if (pr.epilogue == kHead) {  // the launcher guarantees n0 == 0 and BN >= co4
+      __syncthreads();
+      for (int e = tid; e < BM * pr.h4; e += kThreads) {
+        const int r = e / pr.h4, h = e % pr.h4;
+        if (row_out[r] < 0) continue;
+        const float* row = Cs + r * LDC;
+        float acc = 0.f;
+        for (int c = 0; c < pr.co4; ++c)
+          acc = fmaf(row[c], __bfloat162float(pr.w_head[c * pr.h4 + h]), acc);
+        pr.head_out[(m0 + r) * pr.h4 + h] = tanhf(acc + pr.b_head[h]);
+      }
+    }
+
+    if (pr.pool != kPoolNone) {  // the launcher guarantees n0 == 0 and BN >= co4
+      __syncthreads();
+      const int cp = pr.co4 / 4;
+      for (int e = tid; e < BM * cp; e += kThreads) {
+        const int r = e / cp, ch = e % cp;
+        if (row_out[r] < 0) continue;
+        const float* row = Cs + r * LDC;
+        pr.pooled[row_pool[r] + ch] = from_f32<T>(
+            fmaxf(fmaxf(row[ch], row[cp + ch]), fmaxf(row[2 * cp + ch], row[3 * cp + ch])));
+      }
+    }
+  }  // reps
 }
 
-template <typename T, int BN>
-cudaError_t launch_tile(const Problem<T>& pr, cudaStream_t stream) {
+template <typename T, int BN, int PHASE = kProduction>
+cudaError_t launch_tile(const PhaseProblem<T, PHASE>& pr, cudaStream_t stream) {
   constexpr int smem = Tile<T, BN>::kSmem;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(s2d_gemm<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      s2d_gemm<T, BN, PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const int64_t M = (int64_t)pr.batch * pr.n * pr.n;
   const dim3 grid((unsigned)((M + Tile<T, BN>::BM - 1) / Tile<T, BN>::BM),
                   (unsigned)((pr.co4 + BN - 1) / BN));
-  s2d_gemm<T, BN><<<grid, kThreads, smem, stream>>>(pr);
+  s2d_gemm<T, BN, PHASE><<<grid, kThreads, smem, stream>>>(pr);
   return cudaGetLastError();
 }
 

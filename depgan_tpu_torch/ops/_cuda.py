@@ -7,7 +7,10 @@ a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the library already built. The library has a plain C
 interface and is bound with ``ctypes``: pointers and the CUDA stream pass as
 ``c_void_p``; each entry point returns ``cudaGetLastError()`` after its
-launch, which ``check`` turns into an exception.
+launch, which ``check`` turns into an exception. Each source compiles with
+``-Xptxas -v``, and what ptxas reports (registers, stack frame and spills of
+every kernel) is kept beside the library, ``ptxas_log()`` reads it and
+``ptxas_figures`` parses it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +30,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "depgan_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-Xptxas", "-v")  # what ptxas allocated, kept in the build directory
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -48,6 +53,14 @@ _SIGNATURES = {
     # dtype, x1, x2, w1a, w1b, b1, w2, b2, w3, b3, gamma, beta, out, pooled,
     # batch, n, c4a, c4b, c4m, c4o, mode1, mode2, mode3, pool, stream
     "depgan_conv3x3_s2d_chain": [_I] + [_P] * 13 + [_I] * 10 + [_P],
+    # dtype, x, w9, bias, out, batch, n, c4, co4, epilogue, stream
+    "depgan_conv5x5_s2d_packed": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w4, bias, out, batch, n, c4, co4, n_blocks, stream
+    "depgan_conv3x3_rowblk": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, phase, x, a_dense, w4, bias, out, sums, batch, n, c4, co4, reps, stream
+    "depgan_s2d_gemm_probe": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # kind, x, out, rows, m, c_bytes, stream
+    "depgan_deint": [_I, _P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,7 +79,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256()
-    for flag in NVCC_FLAGS:
+    for flag in NVCC_FLAGS + COMPILE_FLAGS:
         digest.update(flag.encode())
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
@@ -89,19 +102,21 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _nvcc_all(commands: dict[str, list[str]]) -> None:
+def _nvcc_all(commands: dict[str, list[str]]) -> str:
     """Runs the nvcc commands all at once; raises with the output of every
-    one that failed."""
+    one that failed, else returns what they printed."""
     procs = {what: subprocess.Popen([_nvcc(), *NVCC_FLAGS, *args], stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
              for what, args in commands.items()}
-    failed = []
+    failed, printed = [], []
     for what, proc in procs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{what}: nvcc failed with code {proc.returncode}:\n{out}\n{err}")
+        printed.append(f"{what}:\n{out}{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return "\n".join(printed)
 
 
 def _build(so: Path) -> None:
@@ -109,12 +124,47 @@ def _build(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))}
-    _nvcc_all({src.name: ["-c", "-o", str(obj), str(src)] for src, obj in objs.items()})
+    log = _nvcc_all({src.name: [*COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                     for src, obj in objs.items()})
     tmp = so.with_name(f"{tag}.so.tmp")
     _nvcc_all({"link": ["-shared", "-o", str(tmp), *map(str, objs.values())]})
+    _log_path(so).write_text(log)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     for obj in objs.values():
         obj.unlink()
+
+
+def _log_path(so: Path) -> Path:
+    return so.with_suffix(".ptxas.txt")
+
+
+def ptxas_log() -> str:
+    """What ptxas printed while building the current library (built if
+    needed)."""
+    library()
+    return _log_path(library_path()).read_text()
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_figures(log: str) -> dict[str, dict[str, int]]:
+    """Each kernel's registers, stack frame and spill bytes from ptxas's
+    ``-v`` report, keyed by the kernel's mangled name."""
+    figures: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            entry = m.group(1)
+            figures[entry] = {}
+        elif entry and (m := _FRAME.search(line)):
+            figures[entry].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+        elif entry and (m := _REGS.search(line)):
+            figures[entry]["registers"] = int(m.group(1))
+    return figures
 
 
 def check(code: int, what: str) -> None:

@@ -50,15 +50,27 @@ from .s2d_conv import (
 _EPILOGUES = {"relu": 0, "film": 1, "none": 2}
 _POOLS = {"pixel": 1, "s2d": 2}
 
+# The packed 5x5 conv (K11, JAX ``CONV5_PACKED``, ``conv_s2d_pallas.py:72``):
+# read at every call of ``_conv5_impl``, which on a CUDA tensor launches K11
+# in place of K7 when this is on and 4C <= 64, as JAX selects
+# ``_kernel5_packed``. Off by default, as in JAX. Its autograd rule needs no
+# change: the transposed convs of the backward and of the critic's input
+# gradient go back through ``_conv5_impl`` and take the same gate.
+CONV5_PACKED = False
+
 # Kernel launches by (name, problem), counted where each wrapper launches its
 # kernel, the problem being the wrapper's shape arguments, so a run's
 # launches can be replayed and timed shape by shape. K1's 'none' epilogue
-# (the backward's transposed convs) counts under a name of its own; K8
-# (``ops/film.py``) counts here too.
+# (the backward's transposed convs) and K11 (the packed 5x5 conv) count under
+# names of their own; K8 (``ops/film.py``) and the probes P1-P3
+# (``ops/probes.py``) count here too.
 KERNEL_NAMES = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
                 "conv3x3_s2d_fused2", "deconv_s2d", "pool_to_s2d", "pool_s2d",
                 "conv5x5_s2d_fused", "film_residual", "conv3x3_s2d_fused_head",
-                "conv3x3_s2d_chain3", "conv3x3_s2d_chain2")
+                "conv3x3_s2d_chain3", "conv3x3_s2d_chain2", "conv5x5_s2d_fused[packed]",
+                "kernel_anatomy[full]", "kernel_anatomy[no_epi]", "kernel_anatomy[matmul_only]",
+                "kernel_anatomy[stage_only]", "conv3x3_rowblk", "deint_reshape_idx",
+                "deint_merge")
 SHAPES: Counter = Counter()
 
 
@@ -433,10 +445,19 @@ def _pool_impl(x_padded, to_s2d: bool):
     return out
 
 
+def conv5_kernel_name(c4: int) -> str:
+    """The kernel a CUDA call of ``_conv5_impl`` with 4C input channels
+    launches: K11 when ``CONV5_PACKED`` is on and 4C <= 64 (JAX's gate,
+    ``conv_s2d_pallas.py:1952``), else K7."""
+    return "conv5x5_s2d_fused[packed]" if CONV5_PACKED and c4 <= 64 else "conv5x5_s2d_fused"
+
+
 def _conv5_impl(x_padded, w9, bias4, mode="relu"):
     """Dense 3x3-tap s2d conv (the SAME 5x5 pixel conv), padded s2d
     (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co). w9 (3, 3, 4C, 4Co) in the dtype
-    of x, bias4 (4Co,) float32; ``mode`` 'relu' or 'none'."""
+    of x, bias4 (4Co,) float32; ``mode`` 'relu' or 'none'. On a CUDA tensor
+    it launches K11 (``conv5x5_s2d_fused[packed]``) when ``CONV5_PACKED`` is
+    on and 4C <= 64, else K7; both take 4C and 4Co multiples of 8."""
     b, n, c4 = _check_plane("conv5x5_s2d_fused", x_padded)
     co4 = w9.shape[-1]
     _check_weight("w9", w9, (3, 3, c4, co4), x_padded.dtype)
@@ -447,9 +468,10 @@ def _conv5_impl(x_padded, w9, bias4, mode="relu"):
     _check_kernel_widths(co4, c4, run=8)
     dev, dt = x_padded.device, x_padded.dtype
     out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    name = conv5_kernel_name(c4)
+    entry = "depgan_conv5x5_s2d_packed" if name.endswith("[packed]") else "depgan_conv5x5_s2d_fused"
     with torch.cuda.device(dev):
-        _launch("conv5x5_s2d_fused", (b, n, c4, co4, mode), "depgan_conv5x5_s2d_fused",
-                _cuda.DTYPE_CODES[dt],
+        _launch(name, (b, n, c4, co4, mode), entry, _cuda.DTYPE_CODES[dt],
                 x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(), out.data_ptr(),
                 b, n, c4, co4, _EPILOGUES[mode], _cuda.stream(dev))
     return out

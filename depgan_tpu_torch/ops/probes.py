@@ -1,0 +1,154 @@
+"""The kernel probes: the timing splits and relayouts that the JAX package's
+``scripts/`` ran as Pallas kernels, as wrappers of hand-written CUDA kernels
+with their plain PyTorch versions.
+
+- ``kernel_anatomy`` (P1, ``scripts/kernel_anatomy.py:108``): K1's relu conv
+  split into phases by the engine's Phase argument (``csrc/s2d_gemm.cuh``),
+  each repeated ``reps`` times in one launch: ``full``, ``no_epi`` (no bias
+  or relu), ``matmul_only`` (the products over the pre-gathered taps of
+  ``gathered_taps``), ``stage_only`` (the gather alone, which returns one
+  float32 sum of staged values per block row of the engine's tile).
+- ``conv3x3_rowblk`` (P2, ``scripts/rowblk_probe.py:125``): K1's relu conv
+  with a row-blocked output grid, each block's input rows staged once
+  (``csrc/window_kernels.cu``); equal to K1.
+- ``deint`` (P3, ``scripts/packed_tap_probe.py:109``): the column
+  deinterleave (B, n, 2m, c) -> (B, n, m, 2c), by index decode
+  (``reshape_idx``) or as the flat copy it is on a row-major layout
+  (``merge``).
+
+As in ``conv_s2d``: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel and counts the launch in ``conv_s2d.SHAPES`` under the
+kernel's name; there is no fallback. The probes are timing tools with no
+caller on a training or serving path; ``depgan_tpu_torch/scripts/`` runs them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from . import conv_s2d as K
+
+ANATOMY_PHASES = {"full": 1, "no_epi": 2, "matmul_only": 3, "stage_only": 4}
+DEINT_KINDS = {"reshape_idx": 0, "merge": 1}
+
+
+def engine_tile_rows(co4: int) -> int:
+    """GEMM rows of the engine's block tile for a 3x3 conv with 4Co outputs
+    (``launch`` in ``csrc/s2d_gemm.cuh``): stage_only sums per such block."""
+    return 256 if co4 <= 64 else 128
+
+
+def gathered_taps(x_padded: torch.Tensor) -> torch.Tensor:
+    """The taps of the 3x3 gather as a dense (B*n*n, 16C) matrix in the
+    plane's dtype, rows (b, y, x), columns in the engine's k order: the
+    pre-gathered A of ``matmul_only``."""
+    c4 = x_padded.shape[-1]
+    return K._taps(x_padded).to(x_padded.dtype).reshape(-1, 4 * c4).contiguous()
+
+
+def kernel_anatomy_plain(phase, x_padded, w4, bias4, a_dense=None):
+    """What each phase computes: the relu conv (``full``, and
+    ``matmul_only`` over ``a_dense``), the conv without bias or relu
+    (``no_epi``), or the float32 sums of the gathered taps over each block
+    row of the engine's tile (``stage_only``)."""
+    b, n, co4 = x_padded.shape[0], x_padded.shape[1] - 2, w4.shape[-1]
+    if phase == "full":
+        return K.conv3x3_s2d_fused_plain(x_padded, w4, bias4)
+    if phase == "no_epi":
+        return K.pad_s2d(K._matmul_taps(K._taps(x_padded), w4).to(x_padded.dtype))
+    if phase == "matmul_only":
+        y = torch.relu(K._matmul_taps(a_dense.float(), w4) + bias4.float())
+        return K.pad_s2d(y.reshape(b, n, n, co4).to(x_padded.dtype))
+    rows = engine_tile_rows(co4)
+    taps = K._taps(x_padded).double().reshape(b * n * n, -1).sum(-1)
+    taps = torch.nn.functional.pad(taps, (0, -taps.shape[0] % rows))
+    return taps.reshape(-1, rows).sum(-1).float()
+
+
+def kernel_anatomy(phase, x_padded, w4, bias4, reps=1, a_dense=None):
+    """One launch of the engine's ``phase``, repeated ``reps`` times inside
+    it; arguments as ``conv_s2d._conv3x3_s2d_impl`` (relu), with ``a_dense``
+    (B*n*n, 16C) in the plane's dtype for ``matmul_only``. Returns the
+    padded output plane, or for ``stage_only`` the float32 sums."""
+    b, n, c4 = K._check_plane("kernel_anatomy", x_padded)
+    co4 = w4.shape[-1]
+    K._check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
+    K._check_f32("bias4", bias4, (co4,))
+    K._require(phase in ANATOMY_PHASES, f"unknown phase {phase!r}")
+    K._require(isinstance(reps, int) and reps >= 1, f"reps must be a positive int, got {reps!r}")
+    dense = (a_dense,) if phase == "matmul_only" else ()
+    if dense:
+        K._require(a_dense is not None and tuple(a_dense.shape) == (b * n * n, 4 * c4)
+                   and a_dense.dtype == x_padded.dtype,
+                   f"matmul_only takes a_dense {x_padded.dtype} {(b * n * n, 4 * c4)}")
+    if not K._on_cuda(x_padded, w4, bias4, *dense):
+        return kernel_anatomy_plain(phase, x_padded, w4, bias4, a_dense)
+    K._check_kernel_widths(co4, c4)
+    dev, dt = x_padded.device, x_padded.dtype
+    out = sums = None
+    if phase == "stage_only":
+        sums = torch.empty(-(-b * n * n // engine_tile_rows(co4)), dtype=torch.float32,
+                           device=dev)
+    else:
+        out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        K._launch(f"kernel_anatomy[{phase}]", (b, n, c4, co4, reps), "depgan_s2d_gemm_probe",
+                  _cuda.DTYPE_CODES[dt], ANATOMY_PHASES[phase], x_padded.data_ptr(),
+                  ptr(a_dense if dense else None), w4.data_ptr(), bias4.data_ptr(), ptr(out),
+                  ptr(sums), b, n, c4, co4, reps, _cuda.stream(dev))
+    return sums if phase == "stage_only" else out
+
+
+def conv3x3_rowblk_plain(x_padded, w4, bias4, n_blocks):
+    """The relu 3x3 conv: how the output is blocked does not change it."""
+    return K.conv3x3_s2d_fused_plain(x_padded, w4, bias4)
+
+
+def conv3x3_rowblk(x_padded, w4, bias4, n_blocks: int):
+    """K1's relu conv, padded s2d (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co),
+    with the output cut into ``n_blocks`` blocks of (N+2)/n_blocks padded
+    rows, each staging its input rows once. ``n_blocks`` divides N+2."""
+    b, n, c4 = K._check_plane("conv3x3_rowblk", x_padded)
+    co4 = w4.shape[-1]
+    K._check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
+    K._check_f32("bias4", bias4, (co4,))
+    K._require(isinstance(n_blocks, int) and n_blocks >= 1 and (n + 2) % n_blocks == 0,
+               f"n_blocks must divide the padded side {n + 2}, got {n_blocks!r}")
+    if not K._on_cuda(x_padded, w4, bias4):
+        return conv3x3_rowblk_plain(x_padded, w4, bias4, n_blocks)
+    K._check_kernel_widths(co4, c4)
+    dev, dt = x_padded.device, x_padded.dtype
+    out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        K._launch("conv3x3_rowblk", (b, n, c4, co4, n_blocks), "depgan_conv3x3_rowblk",
+                  _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(),
+                  out.data_ptr(), b, n, c4, co4, n_blocks, _cuda.stream(dev))
+    return out
+
+
+def deint_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, n, 2m, c) -> (B, n, m, 2c): even columns in [:c], odd in [c:]
+    (the JAX probe's ``xla_strided``)."""
+    return torch.cat((x[:, :, 0::2], x[:, :, 1::2]), dim=-1)
+
+
+def deint(x: torch.Tensor, kind: str = "reshape_idx") -> torch.Tensor:
+    """The column deinterleave of ``deint_plain`` through the kernel
+    ``kind``: 'reshape_idx' (index decode) or 'merge' (a flat copy). The
+    kernels take c channels of a multiple of 16 bytes."""
+    K._require(kind in DEINT_KINDS, f"unknown deinterleave {kind!r}")
+    K._require(x.ndim == 4 and x.shape[2] % 2 == 0,
+               f"deint: expected (B, n, 2m, c), got {tuple(x.shape)}")
+    if not K._on_cuda(x):
+        return deint_plain(x)
+    b, n, m2, c = x.shape
+    K._require(c * x.element_size() % 16 == 0,
+               f"deint: the kernels take c of a multiple of 16 bytes, got {c} x {x.dtype}")
+    out = torch.empty((b, n, m2 // 2, 2 * c), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        K._launch(f"deint_{kind}", (b, n, m2 // 2, c), "depgan_deint", DEINT_KINDS[kind],
+                  x.data_ptr(), out.data_ptr(), b * n, m2 // 2, c * x.element_size(),
+                  _cuda.stream(x.device))
+    return out

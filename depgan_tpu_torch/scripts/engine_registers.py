@@ -1,0 +1,75 @@
+"""What ptxas allocated for the GEMM engine's kernels: registers, stack
+frame and spill bytes of every ``s2d_gemm`` instantiation (dtype, N tile,
+phase), from ``nvcc -Xptxas -v``.
+
+With no argument it reads the report kept beside the port's built library
+(``ops/_cuda.py``). Given source directories (another checkout's
+``depgan_tpu_torch/csrc``), it compiles each one's ``s2d_kernels.cu``, which
+holds the production instantiations, with the port's flags into the build
+directory and prints the same table for each, so two trees can be compared
+on one machine:
+
+    python -m depgan_tpu_torch.scripts.engine_registers [csrc_dir ...]
+"""
+
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+_NAME = re.compile(r"8s2d_gemmI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?E")
+PHASE_NAMES = {0: "production", 1: "probe full", 2: "probe no_epi", 3: "probe matmul_only",
+               4: "probe stage_only"}
+
+
+def engine_figures(log: str) -> dict[tuple, dict[str, int]]:
+    """(dtype, N tile, phase) -> registers, stack, spill stores and loads of
+    each ``s2d_gemm`` kernel in a ptxas ``-v`` report."""
+    from depgan_tpu_torch.ops._cuda import ptxas_figures
+
+    rows = {}
+    for name, fig in ptxas_figures(log).items():
+        if m := _NAME.search(name):
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            rows[dtype, int(m.group(2)), PHASE_NAMES[int(m.group(3) or 0)]] = fig
+    return dict(sorted(rows.items()))
+
+
+def format_rows(rows: dict) -> list[str]:
+    return [f"s2d_gemm<{dt}, {bn}> {phase}: {f.get('registers')} registers, {f.get('stack')} "
+            f"bytes stack frame, {f.get('spill_stores')} / {f.get('spill_loads')} bytes spill "
+            f"stores / loads" for (dt, bn, phase), f in rows.items()]
+
+
+def compile_report(csrc: Path) -> str:
+    """ptxas's report for ``csrc/s2d_kernels.cu``, compiled with the port's
+    flags into the build directory."""
+    from depgan_tpu_torch.ops import _cuda
+
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = _cuda.BUILD_DIR / f"engine_registers.{abs(hash(str(csrc)))}.o"
+    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *_cuda.COMPILE_FLAGS, "-c", "-o",
+                           str(obj), str(csrc / "s2d_kernels.cu")],
+                          capture_output=True, text=True, check=True)
+    obj.unlink(missing_ok=True)
+    return proc.stdout + proc.stderr
+
+
+def main(argv=None) -> dict:
+    from depgan_tpu_torch.ops import _cuda
+
+    dirs = sys.argv[1:] if argv is None else argv
+    reports = {str(d): compile_report(Path(d)) for d in dirs} or {"built": _cuda.ptxas_log()}
+    tables = {}
+    for what, log in reports.items():
+        tables[what] = engine_figures(log)
+        print(f"engine registers ({what}):")
+        for line in format_rows(tables[what]):
+            print(f"  {line}")
+    return tables
+
+
+if __name__ == "__main__":
+    main()

@@ -25,6 +25,7 @@ from depgan_tpu_torch.ops import s2d_conv as S
 from depgan_tpu_torch.ops.fast_critic import FusedCritic
 from depgan_tpu_torch.ops.fast_gen import FastGenerator, FusedGenerator
 from depgan_tpu_torch.ops.film import film_residual, film_residual_plain
+from depgan_tpu_torch.ops import probes
 from depgan_tpu_torch.train.state import adam_moments
 from depgan_tpu_torch.train.uresnet_trainer import UResNetTrainer
 
@@ -558,3 +559,150 @@ def test_uresnet_step_on_cuda_matches_cpu(cuda):
     for name, s in state.batch_stats.items():
         torch.testing.assert_close(s.cpu(), ref.batch_stats[name], atol=1e-5, rtol=1e-4, msg=name)
     assert adam_moments(state.opt, state.params)[0] == 4
+
+
+# K11 (the packed 5x5 conv) at ragged shapes: (b, n, 4C, 4Co, mode); n not a
+# multiple of the row group, 4Co below, at and above one N tile.
+PACKED_CASES = {"entry_16_to_64": (2, 12, 16, 64, "relu"),
+                "none_64_to_16": (2, 10, 64, 16, "none"),
+                "ragged_24_to_136": (2, 8, 24, 136, "relu"),
+                "rows_20_64_to_40": (3, 20, 64, 40, "none"),
+                "wide_n_136": (1, 136, 16, 32, "relu")}
+
+
+@pytest.fixture
+def packed():
+    """CONV5_PACKED on for the test, off again after it."""
+    K.CONV5_PACKED = True
+    yield
+    K.CONV5_PACKED = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_conv5_packed_matches_plain_and_k7(cuda, packed, case, dtype):
+    """K11 against the plain version (f32 atol 1e-4, bf16 atol = rtol =
+    1e-2), its ring exactly zero, and against K7 on the same inputs bit for
+    bit: both sum each product in the engine's order."""
+    dt = getattr(torch, dtype)
+    b, n, c4, co4, mode = PACKED_CASES[case]
+    _, _, plain, inputs, kwargs = _case("conv5", dict(b=b, n=n, c4=c4, co4=co4, mode=mode), dt,
+                                        cuda)
+    before = K.launches()
+    out = K._conv5_impl(*inputs, **kwargs)
+    torch.cuda.synchronize()
+    after = K.launches()
+    assert after["conv5x5_s2d_fused[packed]"] == before["conv5x5_s2d_fused[packed]"] + 1
+    assert after["conv5x5_s2d_fused"] == before["conv5x5_s2d_fused"]
+    torch.testing.assert_close(out.float(), plain(*inputs, **kwargs).float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+    assert _ring_zero(out)
+    K.CONV5_PACKED = False
+    torch.testing.assert_close(out, K._conv5_impl(*inputs, **kwargs), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_conv5_packed_gate_and_refusals(cuda, packed):
+    """With the flag on, 4C <= 64 launches K11 and 4C = 128 launches K7;
+    K11 refuses 4C or 4Co that are not multiples of 8 and never hands them
+    to K7."""
+    _, _, _, (x, w9, bias), _ = _case("conv5", dict(b=2, n=8, c4=128, co4=64, mode="relu"),
+                                      torch.float32, cuda)
+    before = K.launches()
+    K._conv5_impl(x, w9, bias)
+    after = K.launches()
+    assert after["conv5x5_s2d_fused"] == before["conv5x5_s2d_fused"] + 1
+    assert after["conv5x5_s2d_fused[packed]"] == before["conv5x5_s2d_fused[packed]"]
+    x12 = K.pad_s2d(torch.randn(2, 8, 8, 12, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K._conv5_impl(x12, torch.zeros(3, 3, 12, 64, device=cuda), torch.zeros(64, device=cuda))
+    x16 = K.pad_s2d(torch.randn(2, 8, 8, 16, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K._conv5_impl(x16, torch.zeros(3, 3, 16, 12, device=cuda), torch.zeros(12, device=cuda))
+    assert K.launches() == after
+
+
+@pytest.mark.gpu
+def test_fused_critic_packed_on_cuda(cuda, packed):
+    """FusedCritic's score and input gradient with CONV5_PACKED against the
+    default path: 3 of the forward's 4 conv5 launches and 2 of the input
+    gradient's 4 transposes take K11, and the results agree."""
+    cfg = ModelConfig(image_size=32, first_fm=8)
+    tree = flatten_tree(init_critic(cfg, seed=6)["params"])
+    params = {k: torch.tensor(v, device=cuda) for k, v in tree.items()}
+    x = torch.rand(2, 32, 32, 1, generator=torch.Generator(device=cuda).manual_seed(6),
+                   device=cuda)
+    before = K.launches()
+    score, grad = FusedCritic(cfg, torch.float32).score_and_input_grad(params, x)
+    after = K.launches()
+    assert after["conv5x5_s2d_fused[packed]"] - before["conv5x5_s2d_fused[packed]"] == 5
+    assert after["conv5x5_s2d_fused"] - before["conv5x5_s2d_fused"] == 3
+    K.CONV5_PACKED = False
+    ref_score, ref_grad = FusedCritic(cfg, torch.float32).score_and_input_grad(params, x)
+    torch.testing.assert_close(score, ref_score, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(grad, ref_grad, atol=1e-5, rtol=1e-5)
+
+
+def _anatomy_inputs(dtype, device, b=2, n=12, c4=64, co4=96, seed=4):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = K.pad_s2d(torch.randn(b, n, n, c4, generator=g, device=device)).to(dtype)
+    w4 = (torch.randn(2, 2, c4, co4, generator=g, device=device) * (4 * c4) ** -0.5).to(dtype)
+    return x, w4, torch.randn(co4, generator=g, device=device) * 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("co4", [40, 96])
+def test_kernel_anatomy_phases(cuda, dtype, co4):
+    """P1: full (reps 1 and 3) and matmul_only equal K1 bit for bit, no_epi
+    is the conv without bias or relu within K1's tolerances, and
+    stage_only's sums are the gathered taps' sums per block row (float32
+    sums of up to 256 x 256 values: within 1e-5 of their absolute sum)."""
+    dt = getattr(torch, dtype)
+    x, w4, bias = _anatomy_inputs(dt, cuda, co4=co4)
+    k1 = K._conv3x3_s2d_impl(x, w4, bias)
+    a = probes.gathered_taps(x)
+    for phase, reps in (("full", 1), ("full", 3), ("matmul_only", 1), ("matmul_only", 2)):
+        torch.testing.assert_close(probes.kernel_anatomy(phase, x, w4, bias, reps, a), k1,
+                                   atol=0, rtol=0)
+    no_epi = probes.kernel_anatomy("no_epi", x, w4, bias, 2)
+    torch.testing.assert_close(no_epi.float(),
+                               probes.kernel_anatomy_plain("no_epi", x, w4, bias).float(),
+                               atol=TOL[dt], rtol=TOL[dt])
+    assert _ring_zero(no_epi)
+    sums = probes.kernel_anatomy("stage_only", x, w4, bias, 2)
+    ref = probes.kernel_anatomy_plain("stage_only", x, w4, bias)
+    rows = probes.engine_tile_rows(co4)
+    scale = K._taps(x).abs().double().reshape(-1, 4 * x.shape[-1]).sum(-1)
+    scale = torch.nn.functional.pad(scale, (0, -scale.shape[0] % rows)).reshape(-1, rows).sum(-1)
+    assert sums.shape == ref.shape
+    assert bool(((sums.double() - ref.double()).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 10, 32, 64, 3), (2, 10, 32, 64, 12), (2, 16, 64, 136, 6),
+                                   (1, 22, 32, 32, 1)])
+def test_conv3x3_rowblk_equals_k1(cuda, dtype, shape):
+    """P2 against K1 on the same inputs, bit for bit, ring included."""
+    b, n, c4, co4, blocks = shape
+    dt = getattr(torch, dtype)
+    x, w4, bias = _anatomy_inputs(dt, cuda, b=b, n=n, c4=c4, co4=co4)
+    before = K.launches()["conv3x3_rowblk"]
+    out = probes.conv3x3_rowblk(x, w4, bias, blocks)
+    assert K.launches()["conv3x3_rowblk"] == before + 1
+    torch.testing.assert_close(out, K._conv3x3_s2d_impl(x, w4, bias), atol=0, rtol=0)
+    assert _ring_zero(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deint_kernels_equal_plain(cuda, dtype):
+    x = torch.randn(3, 5, 14, 16, device=cuda).to(getattr(torch, dtype))
+    for kind in ("reshape_idx", "merge"):
+        torch.testing.assert_close(probes.deint(x, kind), probes.deint_plain(x), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="16 bytes"):
+        probes.deint(torch.randn(2, 4, 6, 3, device=cuda), "merge")
+    with pytest.raises(ValueError, match="divide"):
+        probes.conv3x3_rowblk(*_anatomy_inputs(torch.float32, cuda, n=10, c4=32, co4=32), 5)
