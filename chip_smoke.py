@@ -7,7 +7,10 @@
    and the build of the CUDA kernels in ``depgan_tpu_torch/csrc/``, with
    the registers, stack frame and spill bytes that ptxas gave every
    instantiation of the GEMM engine (``s2d_gemm``), the production ones
-   held to ENGINE_FIGURES.
+   held to ENGINE_FIGURES, and of the bf16 wgmma mainloop of K1 and K3
+   (``s2d_wgmma``), held to WGMMA_FIGURES; and the library's own A-load
+   plan of every K1 (no pool) and K3 shape, with the route it takes (TMA
+   boxes or cp.async), held to ``ops/wgmma_plan.py``.
 2. Kernels: each kernel against its plain PyTorch version at every shape of
    the serving forward and the training superstep (256x256 slices,
    first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
@@ -24,6 +27,8 @@
    ``matmul_only`` equal to K1 bit for bit, ``stage_only``'s sums within
    1e-5 of their absolute sum), P2 at the level-1/2 shapes with each block
    count (bfloat16, equal to K1 bit for bit), P3 equal to its plain version.
+   In bfloat16, K1 (no pool) and K3, which run the wgmma mainloop, equal
+   the engine's kernel on the same inputs bit for bit.
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
    two synthetic 42-slice subjects against the plain float32 generator with
    the same noise (max abs diff < 0.05), once more with the UResNet softmax
@@ -75,7 +80,9 @@
    kernel's launches of those steps replayed shape by shape against its
    plain version and the library call that computes the same function,
    beside the bound, each timed on the device over launches captured in
-   a CUDA graph; the serving forward's kernels at batch 42 and ms per
+   a CUDA graph that rotate over input copies of twice the L2's size, K1
+   and K3 in turns with the engine's kernel at the same shape (engine,
+   wgmma, wgmma, engine); the serving forward's kernels at batch 42 and ms per
    served subject; K9 and K10 at the serving options' shapes per forward,
    and K12 at four site shapes, at batch 42. ``gan_step_bench`` with
    ``CONV5_PACKED`` beside the default in turns (default, packed, packed,
@@ -159,6 +166,7 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores (K8's arithmetic)
 PALLAS = "depgan_tpu/ops/conv_s2d_pallas.py"
 GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d_gemm.cuh
+WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_kernels.cu"  # bf16 K1 (no pool) and K3
 POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
 FILM_SRC = "depgan_tpu_torch/csrc/film_kernels.cu"
 CHAIN_SRC = "depgan_tpu_torch/csrc/chain_kernels.cu"
@@ -167,10 +175,10 @@ PROBE_SRC = "depgan_tpu_torch/csrc/probe_kernels.cu"
 
 # name -> (source, the Pallas kernel it replaces)
 KERNELS = {
-    "conv3x3_s2d_fused": (GEMM_SRC, f"{PALLAS}:758"),
-    "conv3x3_s2d_fused[none]": (GEMM_SRC, f"{PALLAS}:758"),
+    "conv3x3_s2d_fused": (WGMMA_SRC, f"{PALLAS}:758"),
+    "conv3x3_s2d_fused[none]": (WGMMA_SRC, f"{PALLAS}:758"),
     "conv3x3_s2d_fused_pool": (GEMM_SRC, f"{PALLAS}:1043"),
-    "conv3x3_s2d_fused2": (GEMM_SRC, f"{PALLAS}:1289"),
+    "conv3x3_s2d_fused2": (WGMMA_SRC, f"{PALLAS}:1289"),
     "deconv_s2d": (GEMM_SRC, f"{PALLAS}:408"),
     "pool_to_s2d": (POOL_SRC, f"{PALLAS}:283"),
     "pool_s2d": (POOL_SRC, f"{PALLAS}:198"),
@@ -200,6 +208,14 @@ ENGINE_FIGURES = {
     ("bfloat16", 256): (126, 0, 0, 0), ("float32", 64): (128, 80, 144, 208),
     ("float32", 128): (128, 24, 48, 72), ("float32", 256): (122, 0, 0, 0),
 }  # registers, stack frame bytes, spill store bytes, spill load bytes
+# What ptxas gives the wgmma mainloop's instantiations (N tile, m64 tiles a
+# consumer warpgroup): 168 registers a thread at launch (384 threads, one
+# block an SM; setmaxnreg then gives the consumers 224 and the producer 56),
+# no stack frame and no spills.
+WGMMA_FIGURES = {(bn, mt): (168, 0, 0, 0)
+                 for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))}
+WGMMA_KERNELS = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused2")
+L2_BYTES = 50 * 2 ** 20  # the H100's L2: timed launches rotate over inputs twice its size
 LAUNCHES_PER_FORWARD = {"conv3x3_s2d_fused": 8, "conv3x3_s2d_fused_pool": 2,
                         "conv3x3_s2d_fused2": 2, "deconv_s2d": 1}
 # The serving forward's kernel-selecting options (fuse_pool on): launches
@@ -349,6 +365,9 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         return sum(p.numel() // p.shape[1] ** 2 * (p.shape[1] - 2) ** 2 * p.element_size()
                    for p in planes)
 
+    # K1 (no pool) and K3 also carry the engine's kernel on the same inputs
+    # (``engine``): what they launched in bfloat16 before the wgmma mainloop.
+
     case = {"padded": (True,), "flops": 0.0, "peak": PEAK_FLOPS, "library": None}
     if name in ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool"):
         _, n, c4, co4, mode = problem
@@ -370,6 +389,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
             extra = (randn(b, c4, std=0.3, mean=1.0), randn(b, c4, std=0.3))
         case["kernel"] = lambda: K._conv3x3_s2d_impl(*args, *extra, mode=mode)
         case["plain"] = lambda: K.conv3x3_s2d_fused_plain(*args, *extra, mode=mode)
+        case["engine"] = lambda: P.conv3x3_engine(*args, *extra, mode=mode)
         if mode != "film":
             xp, wl, bl = pixel(x), conv_weight(w3), b3.to(dtype)
             case["library"] = lambda: F.conv2d(xp, wl, bl, padding=1)
@@ -385,6 +405,8 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
                 w4b.to(dtype).contiguous(), bias4)
         case["kernel"] = lambda: K._conv2_impl(*args)
         case["plain"] = lambda: K.conv3x3_s2d_fused2_plain(*args)
+        case["engine"] = lambda: P.conv3x3_engine(args[0], args[2], args[4], x2_padded=args[1],
+                                                  w4_2=args[3])
         xp = torch.cat([pixel(args[0]), pixel(args[1])], dim=1).contiguous(
             memory_format=torch.channels_last)
         wl, bl = conv_weight(w3), b3.to(dtype)
@@ -605,7 +627,9 @@ def check_kernels() -> dict[str, float]:
     version computed in float32 and rounded once. A case's own ``limit``
     replaces the tolerance (P3: exact; P1 stage_only: 1e-5 of the absolute
     sum); P1's full and matmul_only and P2 must equal K1 on the same inputs
-    bit for bit, and K11's difference from K7 is printed."""
+    bit for bit, and K11's difference from K7 is printed. In bfloat16, K1
+    (no pool) and K3 must equal the engine's kernel on the same inputs bit
+    for bit: the wgmma mainloop sums in the engine's order."""
     worst: dict[str, float] = {}
     for i, (name, label, problem) in enumerate(KERNEL_CASES):
         dtypes = CASE_DTYPES.get(name, (torch.float32, torch.bfloat16))
@@ -652,8 +676,8 @@ def check_kernels() -> dict[str, float]:
             seq = ""
             if "sequential" in case:
                 seq = f", {against_sequential(name, label, dtype, out, case['sequential'])}"
-            for ref_kernel in ("k1", "k7"):
-                if ref_kernel in case:
+            for ref_kernel in ("k1", "k7", "engine"):
+                if ref_kernel in case and (ref_kernel != "engine" or dtype == torch.bfloat16):
                     seq = f", {against_kernel(name, label, dtype, out[0], case, ref_kernel)}"
             print(f"kernel {name} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
                   f"({bound}){rings}{seq}")
@@ -661,23 +685,24 @@ def check_kernels() -> dict[str, float]:
 
 
 SEQUENTIAL_DIFF: dict[str, float] = {}  # chain -> largest difference from its sequential kernels
-KERNEL_DIFF: dict[str, float] = {}  # K11 / P1 / P2 -> largest difference from K7 / K1
+KERNEL_DIFF: dict[str, float] = {}  # K11 / P1 / P2 / K1 / K3 -> from K7 / K1 / the engine
 KERNEL_CASES = (SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES + PACKED_CASES
                 + PROBE_CASES)
 
 
 def against_kernel(name: str, label: str, dtype, out, case: dict, ref_kernel: str) -> str:
     """A kernel's output against the kernel that computes the same function
-    on the same inputs in the same order (K7 for K11, K1 for P1 and P2):
-    the largest abs difference, recorded in KERNEL_DIFF. P1 and P2 must
-    equal K1 bit for bit; K11 is held to the plain check's tolerance from
-    K7 and its difference printed."""
+    on the same inputs in the same order (K7 for K11, K1 for P1 and P2, the
+    engine's kernel for bf16 K1 and K3): the largest abs difference,
+    recorded in KERNEL_DIFF. P1 and P2 must equal K1, and K1 and K3 the
+    engine, bit for bit; K11 is held to the plain check's tolerance from K7
+    and its difference printed."""
     ref = case[ref_kernel]()
     torch.cuda.synchronize()
     diff = float((out.float() - ref.float()).abs().max())
-    what = "K1" if ref_kernel == "k1" else "K7"
-    if ref_kernel == "k1":
-        check(diff == 0.0, f"{name} {label} {dtype}: {diff:.3e} from K1, not bit-identical")
+    what = {"k1": "K1", "k7": "K7", "engine": "the engine"}[ref_kernel]
+    if ref_kernel != "k7":
+        check(diff == 0.0, f"{name} {label} {dtype}: {diff:.3e} from {what}, not bit-identical")
     else:
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         check(bool(((out.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all()),
@@ -706,18 +731,43 @@ def against_sequential(name: str, label: str, dtype, out: tuple, sequential) -> 
         f"max abs {diff:.3e} from the sequential kernels")
 
 
-def time_case(case: dict) -> dict:
-    """Kernel, plain and library ms of one launch (``cuda_graph_ms``: device
-    time over launches captured in a CUDA graph, so a launch shorter than
-    the host's dispatch times the kernel and not the host), and its bound."""
+def time_case(name: str, problem: tuple, dtype, seed: int) -> dict:
+    """Kernel, plain and library ms of one launch, and its bound.
+
+    Each time is ``cuda_graph_ms``: device time over launches captured in a
+    CUDA graph, so a launch shorter than the host's dispatch times the kernel
+    and not the host. The kernel's and the library call's launches read
+    their inputs cold: the graph rotates over copies of the case (same
+    values from the same seed, buffers of their own) whose bytes together
+    exceed twice the L2, so no launch finds its inputs in L2 from the launch
+    before. The plain version, no yardstick of speed, runs on one copy. K1
+    (no pool) and K3 also time the engine's kernel on the same copies, in
+    turns with the wgmma mainloop (engine, kernel, kernel, engine): ``ms``
+    and ``engine_ms`` are the faster of each pair, ``turns_ms`` all four."""
     from depgan_tpu_torch.utils.profiling import cuda_graph_ms
 
-    k = cuda_graph_ms(case["kernel"], 10)
-    p = cuda_graph_ms(case["plain"], 3)
-    lib = None if case["library"] is None else cuda_graph_ms(case["library"], 10)
-    t_ops, t_bytes = case["flops"] / case["peak"] * 1e3, case["bytes"] / PEAK_BYTES * 1e3
-    return {"ms": k, "plain_ms": p, "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
-            "ops_ms": t_ops, "bytes_ms": t_bytes}
+    first = make_case(name, problem, dtype, seed)
+    copies = max(1, -(-2 * L2_BYTES // int(first["bytes"])))
+    cases = [first] + [make_case(name, problem, dtype, seed) for _ in range(copies - 1)]
+    rounds = max(1, -(-10 // copies))
+
+    def cold_ms(key: str) -> float:
+        fns = [c[key] for c in cases]
+        return cuda_graph_ms(lambda: [fn() for fn in fns], rounds) / copies
+
+    t = {}
+    if "engine" in first:
+        turns = [cold_ms(key) for key in ("engine", "kernel", "kernel", "engine")]
+        t.update(ms=min(turns[1:3]), engine_ms=min(turns[0], turns[3]), turns_ms=turns)
+    else:
+        t["ms"] = cold_ms("kernel")
+    t["plain_ms"] = cuda_graph_ms(first["plain"], 3)
+    t["library_ms"] = None if first["library"] is None else cold_ms("library")
+    t["copies"] = copies
+    t_ops, t_bytes = first["flops"] / first["peak"] * 1e3, first["bytes"] / PEAK_BYTES * 1e3
+    t.update(bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes)
+    del cases, first
+    return t
 
 
 SHAPE_TIMES: dict[tuple, dict] = {}  # (kernel, problem) -> time_case of its last replay
@@ -726,19 +776,25 @@ SHAPE_TIMES: dict[tuple, dict] = {}  # (kernel, problem) -> time_case of its las
 def replay(shapes: dict, dtype, what: str) -> dict[str, dict]:
     """Times every (kernel, problem) of a run with its count of launches
     and sums them by kernel: ms, plain ms, library ms (null where a launch
-    has no library call) and bound ms of that run's kernel launches. Each
-    shape's times are kept in SHAPE_TIMES."""
+    has no library call), bound ms and, for K1 and K3, the engine's ms of
+    that run's kernel launches. Each shape's times are kept in SHAPE_TIMES."""
     totals: dict[str, dict] = {}
     for i, ((name, problem), count) in enumerate(sorted(shapes.items(), key=str)):
-        t = SHAPE_TIMES[name, problem] = time_case(make_case(name, problem, dtype, seed=100 + i))
+        t = SHAPE_TIMES[name, problem] = time_case(name, problem, dtype, seed=100 + i)
         lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"time {what} {name} {problem} x{count}: kernel {t['ms']:.4f} ms, plain "
+        engine = ""
+        if "engine_ms" in t:
+            engine = (f", engine {t['engine_ms']:.4f} ms (turns engine, kernel, kernel, engine: "
+                      f"{', '.join(f'{v:.4f}' for v in t['turns_ms'])})")
+        print(f"time {what} {name} {problem} x{count}: kernel {t['ms']:.4f} ms{engine}, plain "
               f"{t['plain_ms']:.4f} ms, library {lib} ms, bound {t['bound_ms']:.4f} ms "
-              f"(bytes {t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f})")
+              f"(bytes {t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), "
+              f"{t['copies']} input copies rotated")
         tot = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                        "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
-        for key in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms"):
-            tot[key] += count * t[key]
+        for key in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms", "engine_ms"):
+            if key in t:
+                tot[key] = tot.get(key, 0.0) + count * t[key]
         tot["library_ms"] = (None if tot["library_ms"] is None or t["library_ms"] is None
                              else tot["library_ms"] + count * t["library_ms"])
     return totals
@@ -1491,14 +1547,24 @@ def profile_once(fn, what: str, unprofiled_ms: float) -> None:
 
 def check_engine_build(_cuda) -> None:
     """Phase 1's build check: what ptxas gave every instantiation of the
-    engine (``s2d_gemm``) and of the window kernels, from the report kept
-    beside the library; the production engine held to ENGINE_FIGURES."""
+    engine (``s2d_gemm``), of the wgmma mainloop (``s2d_wgmma``) and of the
+    window kernels, from the report kept beside the library; the production
+    engine held to ENGINE_FIGURES and the mainloop to WGMMA_FIGURES. Then
+    the library's own load plan of every K1 (no pool) and K3 shape of the
+    serving forward and the superstep, held to ``ops/wgmma_plan.py``, with
+    the A-load route each takes."""
+    from depgan_tpu_torch.ops import wgmma_plan
     from depgan_tpu_torch.scripts import engine_registers
 
     log = _cuda.ptxas_log()
     rows = engine_registers.engine_figures(log)
     for line in engine_registers.format_rows(rows):
         print(f"build: {line}")
+    wgmma = engine_registers.wgmma_figures(log)
+    for (bn, mt), f in wgmma.items():
+        print(f"build: s2d_wgmma<{bn}, {mt}>: {f.get('registers')} registers, {f.get('stack')} "
+              f"bytes stack frame, {f.get('spill_stores')} / {f.get('spill_loads')} bytes spill "
+              f"stores / loads")
     for name, fig in _cuda.ptxas_figures(log).items():
         if "window_conv" in name:
             print(f"build: {name}: {fig.get('registers')} registers, {fig.get('stack')} bytes "
@@ -1509,6 +1575,24 @@ def check_engine_build(_cuda) -> None:
                   for (dt, bn, phase), f in rows.items() if phase == "production"}
     check(production == ENGINE_FIGURES,
           f"the engine's production instantiations read {production}, expected {ENGINE_FIGURES}")
+    mainloop = {key: (f.get("registers"), f.get("stack"), f.get("spill_stores"),
+                      f.get("spill_loads")) for key, f in wgmma.items()}
+    check(mainloop == WGMMA_FIGURES,
+          f"the wgmma mainloop's instantiations read {mainloop}, expected {WGMMA_FIGURES}")
+    for name, label, problem in SERVING_CASES + TRAINING_CASES:
+        if name not in WGMMA_KERNELS:
+            continue
+        if name == "conv3x3_s2d_fused2":
+            n, c4a, c4b, co4 = problem
+            c4s = (c4a, c4b)
+        else:
+            n, c4, co4, _ = problem
+            c4s = (c4,)
+        plan = wgmma_plan.plan(n, c4s, co4)
+        check(wgmma_plan.library_plan(n, c4s, co4) == wgmma_plan.as_ints(plan),
+              f"{name} {label}: the library's wgmma plan differs from ops/wgmma_plan.py")
+        print(f"build: wgmma plan {name} [{label}]: route {plan.route}, tile {plan.bm} x "
+              f"{plan.bn}, {plan.n_blocks} column block(s), A box {plan.box}")
 
 
 def bench_packed_beside_default(benchmarks, bench: dict, smi: str) -> dict:
@@ -1605,7 +1689,7 @@ def main() -> int:
     n_checks = sum(len(CASE_DTYPES.get(name, (0, 0))) for name, _, _ in KERNEL_CASES)
     phase_done(f"kernels: {n_checks} checks passed; chains against the sequential kernels: "
                + ", ".join(f"{k} max abs {v:.3e}" for k, v in SEQUENTIAL_DIFF.items())
-               + "; against K7 or K1: "
+               + "; against K7, K1 or the engine: "
                + ", ".join(f"{k} max abs {v:.3e}" for k, v in KERNEL_DIFF.items()))
 
     # Phase 3: the serving path, counting kernel launches.
@@ -1753,7 +1837,7 @@ def main() -> int:
                 "superstep": superstep[name], "superstep_packed": superstep_packed[name],
                 "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name],
                 "probes": probes_launches[name]}
-        extra = {"marginal_ms": timing["marginal_ms"]} if "marginal_ms" in timing else {}
+        extra = {key: timing[key] for key in ("marginal_ms", "engine_ms") if key in timing}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(runs.values()), **{f"launches_{k}": v for k, v in runs.items()},

@@ -1,7 +1,9 @@
 // The s2d GEMM kernels for Hopper (sm_90a): the C entry points over the
-// implicit-GEMM engine of s2d_gemm.cuh. Each fills one Problem and launches
-// it: s2d_gemm<T, 64> for outputs of at most 64 channels, s2d_gemm<T, 128>
-// otherwise, and s2d_gemm<T, 256> for the pooled conv with 4Co = 256.
+// implicit-GEMM engine of s2d_gemm.cuh and, for bf16 K1 without a pool and
+// bf16 K3, the wgmma mainloop of s2d_wgmma.cuh (wgmma_kernels.cu). An
+// engine launch fills one Problem: s2d_gemm<T, 64> for outputs of at most
+// 64 channels, s2d_gemm<T, 128> otherwise, and s2d_gemm<T, 256> for the
+// pooled conv with 4Co = 256.
 //
 // Replaces the Pallas kernels of depgan_tpu/ops/conv_s2d_pallas.py:
 //  - conv3x3_s2d_fused (:758, kernel _kernel :490): a 3x3 SAME conv on a
@@ -50,6 +52,12 @@
 //    ridge, so these GEMMs are bound by their planes' traffic; 4Co <= 64
 //    takes 256 x 64 tiles so that a block's columns are not mostly padding.
 //
+// K1 and K3 take the wgmma mainloop in bf16 (K1 without a pool) and the
+// engine in float32, whose CUDA-core FMAs are the exact indexing check;
+// depgan_conv3x3_s2d_engine launches the engine's bf16 K1 / K3 as well, as
+// the reference that the chains (K10, K12) and the probes P1 and P2 sum
+// like: no wrapper calls it.
+//
 // dtype: 0 = float32, 1 = bfloat16. Every entry point returns
 // cudaGetLastError() after its launch, or an error code for arguments the
 // engine does not take.
@@ -57,6 +65,7 @@
 #include <type_traits>
 
 #include "s2d_gemm.cuh"
+#include "s2d_wgmma.cuh"
 
 namespace {
 
@@ -94,6 +103,18 @@ extern "C" int depgan_conv3x3_s2d_fused(int dtype, const void* x, const void* w4
     return cudaErrorInvalidValue;
   if (epilogue != kRelu && epilogue != kFilm && epilogue != kNone) return cudaErrorInvalidValue;
   if (pool != kPoolNone && (epilogue != kRelu || pooled == nullptr)) return cudaErrorInvalidValue;
+  if (dtype == 1 && pool == kPoolNone) {
+    wg::Conv cv{};
+    cv.x[0] = static_cast<const __nv_bfloat16*>(x);
+    cv.w[0] = static_cast<const __nv_bfloat16*>(w4);
+    cv.c4[0] = c4;
+    cv.n_ops = 1, cv.batch = batch, cv.n = n, cv.co4 = co4, cv.epilogue = epilogue;
+    cv.bias = static_cast<const float*>(bias);
+    cv.gamma = static_cast<const float*>(gamma);
+    cv.beta = static_cast<const float*>(beta);
+    cv.out = static_cast<__nv_bfloat16*>(out);
+    return wg::conv3x3(cv, static_cast<cudaStream_t>(stream));
+  }
   return dispatch(dtype, stream, [&](auto& pr) {
     using T = Elem<std::remove_reference_t<decltype(pr)>>;
     pr.op[0] = {static_cast<const T*>(x), static_cast<const T*>(w4), c4, 4 * c4};
@@ -117,6 +138,18 @@ extern "C" int depgan_conv3x3_s2d_fused2(int dtype, const void* x1, const void* 
                                          const void* w1, const void* w2, const void* bias,
                                          void* out, int batch, int n, int c4a, int c4b, int co4,
                                          void* stream) {
+  if (dtype == 1) {
+    wg::Conv cv{};
+    cv.x[0] = static_cast<const __nv_bfloat16*>(x1);
+    cv.x[1] = static_cast<const __nv_bfloat16*>(x2);
+    cv.w[0] = static_cast<const __nv_bfloat16*>(w1);
+    cv.w[1] = static_cast<const __nv_bfloat16*>(w2);
+    cv.c4[0] = c4a, cv.c4[1] = c4b;
+    cv.n_ops = 2, cv.batch = batch, cv.n = n, cv.co4 = co4, cv.epilogue = kRelu;
+    cv.bias = static_cast<const float*>(bias);
+    cv.out = static_cast<__nv_bfloat16*>(out);
+    return wg::conv3x3(cv, static_cast<cudaStream_t>(stream));
+  }
   return dispatch(dtype, stream, [&](auto& pr) {
     using T = Elem<std::remove_reference_t<decltype(pr)>>;
     pr.op[0] = {static_cast<const T*>(x1), static_cast<const T*>(w1), c4a, 4 * c4a};
@@ -196,6 +229,38 @@ extern "C" int depgan_conv5x5_s2d_fused(int dtype, const void* x, const void* w9
     pr.epilogue = epilogue;
     pr.pool = kPoolNone;
     pr.bias = static_cast<const float*>(bias);
+    pr.out = static_cast<T*>(out);
+  });
+}
+
+// The engine's K1 (x2 == nullptr) or K3 (relu) in either dtype: what
+// depgan_conv3x3_s2d_fused (pool 0) and depgan_conv3x3_s2d_fused2 launch in
+// float32, and launched in bf16 before the wgmma mainloop took it over.
+extern "C" int depgan_conv3x3_s2d_engine(int dtype, const void* x1, const void* x2,
+                                         const void* w1, const void* w2, const void* bias,
+                                         const void* gamma, const void* beta, void* out,
+                                         int batch, int n, int c4a, int c4b, int co4,
+                                         int epilogue, void* stream) {
+  const bool two = x2 != nullptr;
+  if (epilogue != kRelu && epilogue != kFilm && epilogue != kNone) return cudaErrorInvalidValue;
+  if (epilogue == kFilm && (two || c4a != co4 || gamma == nullptr || beta == nullptr))
+    return cudaErrorInvalidValue;
+  if (two && epilogue != kRelu) return cudaErrorInvalidValue;
+  return dispatch(dtype, stream, [&](auto& pr) {
+    using T = Elem<std::remove_reference_t<decltype(pr)>>;
+    pr.op[0] = {static_cast<const T*>(x1), static_cast<const T*>(w1), c4a, 4 * c4a};
+    pr.op[1] = {static_cast<const T*>(x2), static_cast<const T*>(w2), c4b, 4 * c4b};
+    pr.n_ops = two ? 2 : 1;
+    pr.gather = kGatherConv3x3;
+    pr.batch = batch;
+    pr.n = n;
+    pr.p_in = n + 2;
+    pr.co4 = co4;
+    pr.epilogue = epilogue;
+    pr.pool = kPoolNone;
+    pr.bias = static_cast<const float*>(bias);
+    pr.gamma = static_cast<const float*>(gamma);
+    pr.beta = static_cast<const float*>(beta);
     pr.out = static_cast<T*>(out);
   });
 }

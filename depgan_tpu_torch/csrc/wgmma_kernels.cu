@@ -1,0 +1,582 @@
+// The bf16 wgmma mainloop of K1 and K3 for Hopper (sm_90a); the design is in
+// s2d_wgmma.cuh.
+//
+// Replaces, beside the engine's CUDA-core float32 path (s2d_kernels.cu), the
+// bf16 launches of the Pallas kernels of depgan_tpu/ops/conv_s2d_pallas.py:
+//  - conv3x3_s2d_fused (:758, kernel _kernel :490) with the epilogue relu,
+//    film or none and no pool: on the serving path at n = 128 (4C 32 or 128
+//    -> 128) and n = 64 (128 or 256 -> 256); the backward's transposes add
+//    128 -> 256, 256 -> 128 and 256 -> 384.
+//  - conv3x3_s2d_fused2 (:1289, kernel _kernel2 :1217): the two operands are
+//    two k ranges of one accumulator; p2 at n = 64 (384 + 256 -> 256) and p1
+//    at n = 128 (256 + 128 -> 128), K = 2560 and 1536.
+//
+// Bound: at these shapes the GEMMs do ~300 FLOP per byte of their planes,
+// at the H100's bf16 ridge, so the products' rate bounds them; the engine's
+// wmma (mma.sync) with a block-wide barrier every 32 deep ran them at ~18%
+// of the bf16 peak. Here the products are wgmma, which alone reaches the
+// tensor cores' full rate, and the loads run ahead of them through a ring of
+// 4 stages 64 deep with no block-wide barrier: a producer warpgroup (TMA, or
+// cp.async where the gather is not a box) and two consumer warpgroups that
+// hold their BM/2 x BN float32 accumulators in registers (setmaxnreg: 224 a
+// consumer thread, 56 a producer thread). The producer reads each k run's
+// (channel, dx, dy) from a plan the block computes once into shared memory,
+// so its loop does no division. The grid is persistent, one block an SM
+// walking over tiles, so the producer loads the next tile's k-tiles while
+// the consumers store this one. The epilogue reads the accumulators from
+// registers: a 4 x 4 transpose inside each quad of lanes gives every lane 8
+// consecutive columns of one row, so bias, relu or the FiLM site
+// (x + relu(y * gamma + beta)), one rounding to bf16 and the store take
+// 16-byte accesses; the block also writes its share of the zero ring. Each
+// output sums its k-products in 16-deep wgmma steps in k order, the order of
+// the engine's wmma steps, and equals the engine's output bit for bit.
+
+#include <cuda.h>
+
+#include "s2d_gemm.cuh"
+#include "s2d_wgmma.cuh"
+
+namespace depgan {
+namespace wg {
+namespace {
+
+constexpr int kThreadsWg = 384;  // producer warpgroup, then two consumer warpgroups
+constexpr int kABytes = kBM * kBK * 2;      // 16 KB a 128 rows: two halves of 64 bytes a row
+constexpr int kAHalfBytes = kABytes / 2;
+constexpr int kM64Bytes = 64 * 64;          // one m64 tile of a half
+constexpr int kBBox = 64;                   // B box: 64 columns (128 bytes) x 64 rows
+constexpr int kBBoxBytes = kBBox * kBK * 2;
+
+struct alignas(64) Params {
+  CUtensorMap a_map[2];  // the planes as (4C, P, P, B), box (32, bx, by, bb); TMA route only
+  CUtensorMap b_map[2];  // the weights as (co4, k), box (64, 64)
+  Conv conv;
+  Geometry geo;
+  int kt0, kt_total;     // k-tiles of operand 0, of both
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Spins until the barrier's phase of the given parity completes. A wait
+// that outlasts ~2^26 polls (seconds) traps: a lost arrival becomes a launch
+// error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+// Makes this thread's generic-proxy writes to shared memory (its cp.async
+// copies, once waited for) visible to the async proxy that wgmma reads with.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Matrix descriptors. A: K-major, 64-byte swizzle, 8-row groups 512 bytes
+// apart (the leading offset is unused). B: N-major, 128-byte swizzle, 64-
+// column blocks 8 KB apart (leading offset), 8-row k groups 1 KB apart
+// (stride offset). Every stage base is 1 KB aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t desc_a(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kBBoxBytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A K-major, B N-major
+// (imm-trans-b 1), accumulating (scale-d 1). Thread t of the warpgroup holds
+// d[4j + 2i + h] = D[16 (t/32) + (t%32)/4 + 8i][8j + 2 (t%4) + h].
+template <int N> struct Wgmma;
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<192> {
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// MT m64 tiles a consumer warpgroup: BM = 128 MT rows a block.
+template <int BN, int MT>
+__global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant__ Params p) {
+  constexpr int kBMt = kBM * MT, kA = MT * kABytes, kAHalf = MT * kAHalfBytes;
+  constexpr int kStageBytes = kA + BN * kBK * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+
+  const Conv& cv = p.conv;
+  const int tid = threadIdx.x, n = cv.n, side = n + 2, co4 = cv.co4;
+  const bool tma = p.geo.route == kRouteTma;
+  // The load plan, once a block: (channel, dx, dy) of every kVec-deep run of
+  // the GEMM depth, operand 0's then operand 1's, packed c | dx << 16 | dy << 20.
+  int* plan = reinterpret_cast<int*>(smem + kStages * kStageBytes);
+  const int runs0 = p.kt0 * (kBK / kVec), runs = p.kt_total * (kBK / kVec);
+  for (int j = tid; j < runs; j += kThreadsWg) {
+    const int op = j < runs0 ? 0 : 1;
+    const Chunk ck = chunk(cv.c4[op], (j - (op ? runs0 : 0)) * kVec);
+    plan[j] = ck.c | ck.dx << 16 | ck.dy << 20;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], tma ? 1 : 1 + 128);  // expect_tx, and each cp.async producer thread
+      mbar_init(&empty[s], 8);                 // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  zero_ring(cv.out, cv.batch, side, co4, (int64_t)blockIdx.x * kThreadsWg + tid,
+            (int64_t)gridDim.x * kThreadsWg);
+  __syncthreads();
+
+  // Persistent: block i takes tiles i, i + grid, ... (column block fastest),
+  // and the ring's k-tile count `it` runs on across them, so the producer
+  // loads the next tile while the consumers store this one.
+  const int64_t M = (int64_t)cv.batch * n * n;
+  const int64_t tiles = (M + kBMt - 1) / kBMt * p.geo.n_blocks;
+
+  if (tid < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (tma) {  // one thread issues every box
+      if (tid != 0) return;
+      int it = 0;
+      for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (int)(tile % p.geo.n_blocks) * BN;
+        const Origin o = origin(n, tile / p.geo.n_blocks * kBMt);
+        for (int t = 0; t < p.kt_total; ++t, ++it) {
+          const int s = it % kStages, op = t < p.kt0 ? 0 : 1;
+          if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          unsigned char* a = smem + s * kStageBytes;
+          mbar_expect_tx(&full[s], kStageBytes);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = plan[t * (kBK / kVec) + h * (kHalf / kVec)];
+            tma_4d(a + h * kAHalf, &p.a_map[op], &full[s], e & 0xFFFF,
+                   o.x + ((e >> 16) & 15), o.y + (e >> 20), o.b);
+          }
+          const int k0 = (t - (op ? p.kt0 : 0)) * kBK;
+#pragma unroll
+          for (int j = 0; j < BN / kBBox; ++j)
+            tma_2d(a + kA + j * kBBoxBytes, &p.b_map[op], &full[s], n0 + j * kBBox, k0);
+        }
+      }
+      return;
+    }
+    if constexpr (MT == 1) {  // geometry() gives BM = 256 only with TMA boxes
+      // cp.async: thread tid copies 16-byte run kv of each k-tile for rows
+      // tid/8 + 16i, in the 64-byte swizzle (chunk j of row r at 16 (j ^ (r/2 % 4))).
+      const int kv = tid & 7, r0 = tid >> 3;
+      const uint32_t a_off = (kv >> 2) * kAHalf + r0 * 64 + (((kv & 3) ^ ((r0 >> 1) & 3)) << 4);
+      int it = 0, pending = -1;  // the stage whose copies are not yet announced
+      for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (int)(tile % p.geo.n_blocks) * BN;
+        const int64_t m0 = tile / p.geo.n_blocks * kBM;
+        int pix[8];  // the rows' positions as padded-plane pixels; -1 past M
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int64_t m = m0 + r0 + 16 * i;
+          const Origin om = origin(n, m);
+          pix[i] = m < M ? (om.b * side + om.y) * side + om.x : -1;
+        }
+        for (int t = 0; t < p.kt_total; ++t, ++it) {
+          const int s = it % kStages, op = t < p.kt0 ? 0 : 1;
+          if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          unsigned char* a = smem + s * kStageBytes;
+          if (tid == 0) {
+            const int k0 = (t - (op ? p.kt0 : 0)) * kBK;
+            mbar_expect_tx(&full[s], BN * kBK * 2);
+#pragma unroll
+            for (int j = 0; j < BN / kBBox; ++j)
+              tma_2d(a + kA + j * kBBoxBytes, &p.b_map[op], &full[s], n0 + j * kBBox, k0);
+          }
+          const int c4 = cv.c4[op], e = plan[t * (kBK / kVec) + kv];
+          const __nv_bfloat16* x = cv.x[op];
+          const __nv_bfloat16* src = x + ((e >> 20) * side + ((e >> 16) & 15)) * c4 + (e & 0xFFFF);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            cp_async16(a + a_off + i * 1024, pix[i] >= 0 ? src + (int64_t)pix[i] * c4 : x,
+                       pix[i] >= 0);
+          cp_async_commit();
+          if (pending >= 0) {  // the previous k-tile's copies: landed, fenced, announced
+            cp_async_wait<1>();
+            fence_proxy_async();
+            mbar_arrive(&full[pending]);
+          }
+          pending = s;
+        }
+      }
+      if (pending >= 0) {
+        cp_async_wait<0>();
+        fence_proxy_async();
+        mbar_arrive(&full[pending]);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups: rows 64 MT g .. 64 MT (g + 1) - 1 of each tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int g = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31, q = lane & 3;
+  union Pack {
+    uint4 u;
+    __nv_bfloat16 v[8];
+  };
+  int it = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = (int)(tile % p.geo.n_blocks) * BN;
+    const int64_t m0 = tile / p.geo.n_blocks * kBMt;
+    float acc[MT][BN / 2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[mt][e] = 0.f;
+    for (int t = 0; t < p.kt_total; ++t, ++it) {
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      const uint32_t a = smem_u32(smem + s * kStageBytes) + g * MT * kM64Bytes;
+      const uint32_t b = smem_u32(smem + s * kStageBytes + kA);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          Wgmma<BN>::mma(acc[mt], desc_a(a + (kk >> 1) * kAHalf + mt * kM64Bytes + (kk & 1) * 32),
+                         desc_b(b + kk * 16 * 128));
+      wgmma_commit();
+      if (t > 0) {  // k-tile it-1's products are done: free its stage
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) pin(acc[mt][e]);
+
+    // Epilogue. Lane q of a quad holds columns 8j + 2q, +1 of each 8-column
+    // block j; a 4 x 4 transpose over each group of four blocks gives it the
+    // 8 columns of block 4G + q, in 4 rounds of shuffles.
+#pragma unroll
+    for (int mi = 0; mi < 2 * MT; ++mi) {
+      const int mt = mi / 2, i = mi % 2;
+      const int64_t m = m0 + (g * MT + mt) * 64 + warp * 16 + (lane >> 2) + 8 * i;
+      const Origin o = origin(n, m);
+      const int64_t pos = ((int64_t)o.b * side + o.y + 1) * side + o.x + 1;
+#pragma unroll
+      for (int G = 0; G < BN / 32; ++G) {
+        float v[8];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int sb = (q + r) & 3, from = (q - r) & 3;  // block sent, lane received from
+          float s0 = acc[mt][(4 * G + 3) * 4 + 2 * i], s1 = acc[mt][(4 * G + 3) * 4 + 2 * i + 1];
+#pragma unroll
+          for (int blk = 2; blk >= 0; --blk) {
+            if (sb == blk)
+              s0 = acc[mt][(4 * G + blk) * 4 + 2 * i], s1 = acc[mt][(4 * G + blk) * 4 + 2 * i + 1];
+          }
+          const float r0 = __shfl_sync(0xffffffffu, s0, (lane & ~3) | from);
+          const float r1 = __shfl_sync(0xffffffffu, s1, (lane & ~3) | from);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (from == u) v[2 * u] = r0, v[2 * u + 1] = r1;
+          }
+        }
+        const int col = n0 + 8 * (4 * G + q);
+        if (m >= M || col >= co4) continue;
+        const float4 b0 = *reinterpret_cast<const float4*>(cv.bias + col);
+        const float4 b1 = *reinterpret_cast<const float4*>(cv.bias + col + 4);
+        const float bias[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += bias[e];
+        if (cv.epilogue == kRelu) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
+        } else if (cv.epilogue == kFilm) {  // the trunk is the input at the same position
+          Pack tr;
+          tr.u = *reinterpret_cast<const uint4*>(cv.x[0] + pos * cv.c4[0] + col);
+          const float4* gm = reinterpret_cast<const float4*>(cv.gamma + (int64_t)o.b * co4 + col);
+          const float4* bt = reinterpret_cast<const float4*>(cv.beta + (int64_t)o.b * co4 + col);
+          const float4 g0 = gm[0], g1 = gm[1], t0 = bt[0], t1 = bt[1];
+          const float gamma[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+          const float beta[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = film_site(v[e], gamma[e], beta[e], __bfloat162float(tr.v[e]));
+        }
+        Pack out;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) out.v[e] = __float2bfloat16(v[e]);
+        *reinterpret_cast<uint4*>(cv.out + pos * co4 + col) = out.u;
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, reached through the runtime so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map of rank dims (innermost first, strides in bytes of dims
+// 1 .. rank-1) with the given box and swizzle; zeros fill what lies outside.
+bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, int MT>
+cudaError_t launch_bn(const Params& prm, cudaStream_t stream) {
+  // The ring, the plan (an int a kVec-deep run) and the 1 KB alignment.
+  const int smem = kStages * (MT * kABytes + BN * kBK * 2) + prm.kt_total * (kBK / kVec) * 4 + 1024;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(s2d_wgmma<BN, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t rows = (int64_t)prm.conv.batch * prm.conv.n * prm.conv.n;
+  const int64_t tiles = (rows + kBM * MT - 1) / (kBM * MT) * prm.geo.n_blocks;
+  s2d_wgmma<BN, MT><<<(unsigned)(tiles < sms ? tiles : sms), kThreadsWg, smem, stream>>>(prm);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+cudaError_t conv3x3(const Conv& cv, cudaStream_t stream) {
+  if (cv.batch <= 0 || cv.n <= 0 || cv.co4 <= 0 || cv.co4 % 8 != 0 || cv.n_ops < 1 ||
+      cv.n_ops > 2)
+    return cudaErrorInvalidValue;
+  if (cv.epilogue != kRelu && cv.epilogue != kFilm && cv.epilogue != kNone)
+    return cudaErrorInvalidValue;
+  if (cv.epilogue == kFilm && (cv.n_ops != 1 || cv.c4[0] != cv.co4)) return cudaErrorInvalidValue;
+  for (int o = 0; o < cv.n_ops; ++o)  // whole 16-byte runs; channels fit the plan's 16 bits
+    if (cv.c4[o] <= 0 || cv.c4[o] % 32 != 0 || cv.c4[o] > 0xFFFF) return cudaErrorInvalidValue;
+  Params prm{};
+  prm.conv = cv;
+  prm.geo = geometry(cv.n, cv.c4, cv.n_ops, cv.co4);
+  prm.kt0 = 4 * cv.c4[0] / kBK;
+  prm.kt_total = prm.kt0 + (cv.n_ops > 1 ? 4 * cv.c4[1] / kBK : 0);
+  const cuuint64_t side = cv.n + 2;
+  for (int o = 0; o < cv.n_ops; ++o) {
+    const cuuint64_t c4 = cv.c4[o];
+    const cuuint64_t w_dims[2] = {(cuuint64_t)cv.co4, 4 * c4};
+    const cuuint64_t w_strides[1] = {(cuuint64_t)cv.co4 * 2};
+    const cuuint32_t w_box[2] = {kBBox, kBK};
+    if (!encode(&prm.b_map[o], cv.w[o], 2, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+    if (prm.geo.route != kRouteTma) continue;
+    const cuuint64_t x_dims[4] = {c4, side, side, (cuuint64_t)cv.batch};
+    const cuuint64_t x_strides[3] = {c4 * 2, side * c4 * 2, side * side * c4 * 2};
+    const cuuint32_t x_box[4] = {(cuuint32_t)prm.geo.box[0], (cuuint32_t)prm.geo.box[1],
+                                 (cuuint32_t)prm.geo.box[2], (cuuint32_t)prm.geo.box[3]};
+    if (!encode(&prm.a_map[o], cv.x[o], 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B))
+      return cudaErrorInvalidValue;
+  }
+  if (prm.geo.bm == 2 * kBM) return prm.geo.bn == 64 ? launch_bn<64, 2>(prm, stream)
+                                                     : launch_bn<128, 2>(prm, stream);
+  switch (prm.geo.bn) {
+    case 64: return launch_bn<64, 1>(prm, stream);
+    case 128: return launch_bn<128, 1>(prm, stream);
+    case 192: return launch_bn<192, 1>(prm, stream);
+    case 256: return launch_bn<256, 1>(prm, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+}  // namespace depgan
+
+// The launch plan of a K1 (c4b = 0) or K3 launch as the kernel takes it:
+// out[0..7] = route, bm, bn, n_blocks, box[4]; then, for each run of GEMM depth
+// the producer loads in one piece (kHalf deep by TMA, kVec by cp.async), in
+// k order over operand 0 then 1, (operand, channel, dx, dy). Returns the
+// number of ints written, or -1 if they would not fit in cap.
+extern "C" int depgan_wgmma_plan(int n, int c4a, int c4b, int co4, int* out, int cap) {
+  using namespace depgan::wg;
+  if (n <= 0 || c4a <= 0 || c4a % 32 != 0 || c4b < 0 || c4b % 32 != 0 || co4 <= 0) return -1;
+  const int c4[2] = {c4a, c4b};
+  const int n_ops = c4b > 0 ? 2 : 1;
+  const Geometry g = geometry(n, c4, n_ops, co4);
+  const int run = g.route == kRouteTma ? kHalf : kVec;
+  int w = 0;
+  const int head[8] = {g.route, g.bm, g.bn, g.n_blocks, g.box[0], g.box[1], g.box[2], g.box[3]};
+  for (int v : head) {
+    if (w >= cap) return -1;
+    out[w++] = v;
+  }
+  for (int o = 0; o < n_ops; ++o) {
+    for (int k0 = 0; k0 < 4 * c4[o]; k0 += run) {
+      if (w + 4 > cap) return -1;
+      const Chunk ck = chunk(c4[o], k0);
+      out[w++] = o, out[w++] = ck.c, out[w++] = ck.dx, out[w++] = ck.dy;
+    }
+  }
+  return w;
+}

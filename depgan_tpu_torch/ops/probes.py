@@ -16,6 +16,10 @@ with their plain PyTorch versions.
   (``reshape_idx``) or as the flat copy it is on a row-major layout
   (``merge``).
 
+``conv3x3_engine`` launches the GEMM engine's K1 or K3, which the wrappers
+no longer call in bfloat16: the reference that the wgmma mainloop, the
+chains and P1, P2 equal bit for bit.
+
 As in ``conv_s2d``: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel and counts the launch in ``conv_s2d.SHAPES`` under the
 kernel's name; there is no fallback. The probes are timing tools with no
@@ -99,6 +103,49 @@ def kernel_anatomy(phase, x_padded, w4, bias4, reps=1, a_dense=None):
                   ptr(a_dense if dense else None), w4.data_ptr(), bias4.data_ptr(), ptr(out),
                   ptr(sums), b, n, c4, co4, reps, _cuda.stream(dev))
     return sums if phase == "stage_only" else out
+
+
+def conv3x3_engine(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu", x2_padded=None,
+                   w4_2=None):
+    """The GEMM engine's K1 (``mode`` relu, film or none) or, with
+    ``x2_padded`` and ``w4_2``, its K3 (relu), on a CUDA tensor in either
+    dtype: what ``conv_s2d``'s wrappers launched in bfloat16 before the wgmma
+    mainloop took K1 and K3 over, and what the chains (K10, K12) and P1, P2
+    sum like. A reference for ``chip_smoke.py`` and the card's tests: no
+    path calls it, and it counts no launch. Arguments as
+    ``conv_s2d._conv3x3_s2d_impl`` and ``_conv2_impl``."""
+    b, n, c4 = K._check_plane("conv3x3_engine", x_padded)
+    co4 = w4.shape[-1]
+    K._check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
+    K._check_f32("bias4", bias4, (co4,))
+    two = x2_padded is not None
+    K._require(mode in K._EPILOGUES and (not two or mode == "relu"), f"bad mode {mode!r}")
+    c4b = x2_padded.shape[-1] if two else 0
+    if two:
+        K._require(tuple(x2_padded.shape[:3]) == tuple(x_padded.shape[:3]),
+                   "x and x2 must share batch and plane size")
+        K._check_weight("w4_2", w4_2, (2, 2, c4b, co4), x_padded.dtype)
+    film = mode == "film"
+    if film:
+        K._check_f32("gamma4", gamma4, (b, c4))
+        K._check_f32("beta4", beta4, (b, c4))
+    extra = [t for t in (x2_padded, w4_2, gamma4 if film else None, beta4 if film else None)
+             if t is not None]
+    if not K._on_cuda(x_padded, w4, bias4, *extra):
+        if two:
+            return K.conv3x3_s2d_fused2_plain(x_padded, x2_padded, w4, w4_2, bias4)
+        return K.conv3x3_s2d_fused_plain(x_padded, w4, bias4, gamma4, beta4, mode)
+    K._check_kernel_widths(co4, c4, *((c4b,) if two else ()))
+    dev, dt = x_padded.device, x_padded.dtype
+    out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        _cuda.check(_cuda.library().depgan_conv3x3_s2d_engine(
+            _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), ptr(x2_padded), w4.data_ptr(),
+            ptr(w4_2), bias4.data_ptr(), ptr(gamma4 if film else None),
+            ptr(beta4 if film else None), out.data_ptr(), b, n, c4, c4b, co4,
+            K._EPILOGUES[mode], _cuda.stream(dev)), "conv3x3_engine")
+    return out
 
 
 def conv3x3_rowblk_plain(x_padded, w4, bias4, n_blocks):

@@ -25,7 +25,7 @@ from depgan_tpu_torch.ops import s2d_conv as S
 from depgan_tpu_torch.ops.fast_critic import FusedCritic
 from depgan_tpu_torch.ops.fast_gen import FastGenerator, FusedGenerator
 from depgan_tpu_torch.ops.film import film_residual, film_residual_plain
-from depgan_tpu_torch.ops import probes
+from depgan_tpu_torch.ops import probes, wgmma_plan
 from depgan_tpu_torch.train.state import adam_moments
 from depgan_tpu_torch.train.uresnet_trainer import UResNetTrainer
 
@@ -706,3 +706,72 @@ def test_deint_kernels_equal_plain(cuda, dtype):
         probes.deint(torch.randn(2, 4, 6, 3, device=cuda), "merge")
     with pytest.raises(ValueError, match="divide"):
         probes.conv3x3_rowblk(*_anatomy_inputs(torch.float32, cuda, n=10, c4=32, co4=32), 5)
+
+
+# The bf16 wgmma mainloop (bf16 K1 without a pool, K3) at the 4C -> 4Co
+# widths of the serving forward and of the superstep's transposes, at small
+# n: 8 (a 256-row tile spans four images), 12 (the cp.async route) and 16.
+WGMMA_WIDTHS = {
+    "relu 32->128": ((32,), 128, "relu"), "relu 128->128": ((128,), 128, "relu"),
+    "film 128": ((128,), 128, "film"), "relu 128->256": ((128,), 256, "relu"),
+    "relu 256->256": ((256,), 256, "relu"), "film 256": ((256,), 256, "film"),
+    "none 128->128": ((128,), 128, "none"), "none 128->256": ((128,), 256, "none"),
+    "none 256->128": ((256,), 128, "none"), "none 256->256": ((256,), 256, "none"),
+    "none 256->384": ((256,), 384, "none"),
+    "fused2 384+256->256": ((384, 256), 256, "relu"),
+    "fused2 256+128->128": ((256, 128), 128, "relu"),
+}
+
+
+def _wgmma_inputs(c4s, co4, mode, n, device, b=3, seed=5):
+    g = torch.Generator(device=device).manual_seed(seed)
+    xs = [K.pad_s2d(torch.randn(b, n, n, c4, generator=g, device=device)).bfloat16() for c4 in c4s]
+    ws = [(torch.randn(2, 2, c4, co4, generator=g, device=device) * (4 * sum(c4s)) ** -0.5)
+          .bfloat16() for c4 in c4s]
+    bias = torch.randn(co4, generator=g, device=device) * 0.1
+    film = ()
+    if mode == "film":
+        film = (torch.randn(b, co4, generator=g, device=device) * 0.3 + 1,
+                torch.randn(b, co4, generator=g, device=device) * 0.3)
+    return xs, ws, bias, film
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WGMMA_WIDTHS))
+def test_wgmma_matches_plain_and_engine(cuda, case):
+    """The wgmma mainloop against the plain version (bf16 tolerances, rings
+    exactly zero) and against the engine's kernel on the same inputs, bit
+    for bit: both sum each output in 16-deep steps in k order."""
+    c4s, co4, mode = WGMMA_WIDTHS[case]
+    two = len(c4s) == 2
+    name = ("conv3x3_s2d_fused2" if two else
+            "conv3x3_s2d_fused[none]" if mode == "none" else "conv3x3_s2d_fused")
+    for n in (8, 12, 16):
+        xs, ws, bias, film = _wgmma_inputs(c4s, co4, mode, n, cuda)
+        before = K.launches()[name]
+        if two:
+            out = K._conv2_impl(xs[0], xs[1], ws[0], ws[1], bias)
+            ref = K.conv3x3_s2d_fused2_plain(xs[0], xs[1], ws[0], ws[1], bias)
+            engine = probes.conv3x3_engine(xs[0], ws[0], bias, x2_padded=xs[1], w4_2=ws[1])
+        else:
+            out = K._conv3x3_s2d_impl(xs[0], ws[0], bias, *film, mode=mode)
+            ref = K.conv3x3_s2d_fused_plain(xs[0], ws[0], bias, *film, mode=mode)
+            engine = probes.conv3x3_engine(xs[0], ws[0], bias, *film, mode=mode)
+        torch.cuda.synchronize()
+        assert K.launches()[name] == before + 1
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        assert _ring_zero(out)
+        diff = float((out.float() - engine.float()).abs().max())
+        print(f"{case} n {n} ({wgmma_plan.plan(n, c4s, co4).route}): max abs {diff:.3e} "
+              f"from the engine")
+        assert diff == 0.0
+
+
+@pytest.mark.gpu
+def test_wgmma_library_plan_matches_python(cuda):
+    """The library's own load plan equals ``ops/wgmma_plan.py`` at every
+    width and at the production sides."""
+    for c4s, co4, _ in WGMMA_WIDTHS.values():
+        for n in (8, 12, 16, 64, 128):
+            assert wgmma_plan.library_plan(n, c4s, co4) == wgmma_plan.as_ints(
+                wgmma_plan.plan(n, c4s, co4))

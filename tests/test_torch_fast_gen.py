@@ -105,7 +105,8 @@ def test_port_imports_no_jax():
             "depgan_tpu_torch.benchmarks, depgan_tpu_torch.train.uresnet_trainer, "
             "depgan_tpu_torch.ops.film, depgan_tpu_torch.data.pipeline, "
             "depgan_tpu_torch.data.preprocess, depgan_tpu_torch.utils.profiling, "
-            "depgan_tpu_torch.ops.conv_s2d, depgan_tpu_torch.ops._cuda; "
+            "depgan_tpu_torch.ops.conv_s2d, depgan_tpu_torch.ops._cuda, "
+            "depgan_tpu_torch.ops.wgmma_plan, depgan_tpu_torch.ops.probes; "
             "bad = sorted(m for m in sys.modules "
             "             if m.split('.')[0] in ('jax', 'flax', 'jaxlib', 'depgan_tpu')); "
             "assert not bad, bad")
