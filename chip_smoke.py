@@ -7,10 +7,10 @@
    and the build of the CUDA kernels in ``depgan_tpu_torch/csrc/``, with
    the registers, stack frame and spill bytes that ptxas gave every
    instantiation of the GEMM engine (``s2d_gemm``), the production ones
-   held to ENGINE_FIGURES, and of the bf16 wgmma mainloop of K1 and K3
-   (``s2d_wgmma``), held to WGMMA_FIGURES; and the library's own A-load
-   plan of every K1 (no pool) and K3 shape, with the route it takes (TMA
-   boxes or cp.async), held to ``ops/wgmma_plan.py``.
+   held to ENGINE_FIGURES, and of the bf16 wgmma mainloop of K1, K2, K3
+   and K7 (``s2d_wgmma``), held to WGMMA_FIGURES; and the library's own
+   A-load plan of every K1, K2, K3 and K7 shape, with the route it takes
+   (TMA boxes or cp.async), held to ``ops/wgmma_plan.py``.
 2. Kernels: each kernel against its plain PyTorch version at every shape of
    the serving forward and the training superstep (256x256 slices,
    first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
@@ -27,8 +27,8 @@
    ``matmul_only`` equal to K1 bit for bit, ``stage_only``'s sums within
    1e-5 of their absolute sum), P2 at the level-1/2 shapes with each block
    count (bfloat16, equal to K1 bit for bit), P3 equal to its plain version.
-   In bfloat16, K1 (no pool) and K3, which run the wgmma mainloop, equal
-   the engine's kernel on the same inputs bit for bit.
+   In bfloat16, K1, K2 (both outputs), K3 and K7, which run the wgmma
+   mainloop, equal the engine's kernel on the same inputs bit for bit.
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
    two synthetic 42-slice subjects against the plain float32 generator with
    the same noise (max abs diff < 0.05), once more with the UResNet softmax
@@ -80,9 +80,10 @@
    kernel's launches of those steps replayed shape by shape against its
    plain version and the library call that computes the same function,
    beside the bound, each timed on the device over launches captured in
-   a CUDA graph that rotate over input copies of twice the L2's size, K1
-   and K3 in turns with the engine's kernel at the same shape (engine,
-   wgmma, wgmma, engine); the serving forward's kernels at batch 42 and ms per
+   a CUDA graph that rotate over input copies of twice the L2's size, K1,
+   K2, K3 and K7 in turns with the engine's kernel at the same shape
+   (engine, wgmma, wgmma, engine); the serving forward's kernels at batch 42
+   and ms per
    served subject; K9 and K10 at the serving options' shapes per forward,
    and K12 at four site shapes, at batch 42. ``gan_step_bench`` with
    ``CONV5_PACKED`` beside the default in turns (default, packed, packed,
@@ -166,7 +167,7 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores (K8's arithmetic)
 PALLAS = "depgan_tpu/ops/conv_s2d_pallas.py"
 GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d_gemm.cuh
-WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_kernels.cu"  # bf16 K1 (no pool) and K3
+WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_kernels.cu"  # bf16 K1, K2, K3 and K7
 POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
 FILM_SRC = "depgan_tpu_torch/csrc/film_kernels.cu"
 CHAIN_SRC = "depgan_tpu_torch/csrc/chain_kernels.cu"
@@ -177,12 +178,12 @@ PROBE_SRC = "depgan_tpu_torch/csrc/probe_kernels.cu"
 KERNELS = {
     "conv3x3_s2d_fused": (WGMMA_SRC, f"{PALLAS}:758"),
     "conv3x3_s2d_fused[none]": (WGMMA_SRC, f"{PALLAS}:758"),
-    "conv3x3_s2d_fused_pool": (GEMM_SRC, f"{PALLAS}:1043"),
+    "conv3x3_s2d_fused_pool": (WGMMA_SRC, f"{PALLAS}:1043"),
     "conv3x3_s2d_fused2": (WGMMA_SRC, f"{PALLAS}:1289"),
     "deconv_s2d": (GEMM_SRC, f"{PALLAS}:408"),
     "pool_to_s2d": (POOL_SRC, f"{PALLAS}:283"),
     "pool_s2d": (POOL_SRC, f"{PALLAS}:198"),
-    "conv5x5_s2d_fused": (GEMM_SRC, f"{PALLAS}:1918"),
+    "conv5x5_s2d_fused": (WGMMA_SRC, f"{PALLAS}:1918"),
     "film_residual": (FILM_SRC, "depgan_tpu/ops/film_pallas.py:58"),
     "conv3x3_s2d_fused_head": (GEMM_SRC, f"{PALLAS}:1145"),
     "conv3x3_s2d_chain3": (CHAIN_SRC, f"{PALLAS}:1741"),
@@ -209,12 +210,17 @@ ENGINE_FIGURES = {
     ("float32", 128): (128, 24, 48, 72), ("float32", 256): (122, 0, 0, 0),
 }  # registers, stack frame bytes, spill store bytes, spill load bytes
 # What ptxas gives the wgmma mainloop's instantiations (N tile, m64 tiles a
-# consumer warpgroup): 168 registers a thread at launch (384 threads, one
-# block an SM; setmaxnreg then gives the consumers 224 and the producer 56),
-# no stack frame and no spills.
-WGMMA_FIGURES = {(bn, mt): (168, 0, 0, 0)
-                 for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))}
-WGMMA_KERNELS = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused2")
+# consumer warpgroup, K2's pooled epilogue): 168 registers a thread at
+# launch (384 threads, one block an SM; setmaxnreg then gives the consumers
+# 224 and the producer 56), no stack frame and no spills. K7's 5x5 gather is
+# a runtime case of the unpooled six (K7 runs (64, 1), (64, 2) and (128, 2));
+# K2 runs the pooled (128, 2) and (256, 1) at its production shapes and
+# (64, 1 or 2) at 4Co 32 or 64.
+WGMMA_FIGURES = {(bn, mt, pool): (168, 0, 0, 0)
+                 for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))
+                 for pool in (False, True) if not (pool and bn == 192)}
+WGMMA_KERNELS = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
+                 "conv3x3_s2d_fused2", "conv5x5_s2d_fused")
 L2_BYTES = 50 * 2 ** 20  # the H100's L2: timed launches rotate over inputs twice its size
 LAUNCHES_PER_FORWARD = {"conv3x3_s2d_fused": 8, "conv3x3_s2d_fused_pool": 2,
                         "conv3x3_s2d_fused2": 2, "deconv_s2d": 1}
@@ -365,7 +371,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         return sum(p.numel() // p.shape[1] ** 2 * (p.shape[1] - 2) ** 2 * p.element_size()
                    for p in planes)
 
-    # K1 (no pool) and K3 also carry the engine's kernel on the same inputs
+    # K1, K2, K3 and K7 also carry the engine's kernel on the same inputs
     # (``engine``): what they launched in bfloat16 before the wgmma mainloop.
 
     case = {"padded": (True,), "flops": 0.0, "peak": PEAK_FLOPS, "library": None}
@@ -380,6 +386,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         if name == "conv3x3_s2d_fused_pool":
             case["kernel"] = lambda: K.conv3x3_s2d_fused_pool(*args, pool=mode)
             case["plain"] = lambda: K.conv3x3_s2d_fused_pool_plain(*args, pool=mode)
+            case["engine"] = lambda: P.conv3x3_engine(*args, pool=mode)
             case["padded"] = (True, mode == "s2d")
             pooled = b * ((n // 2 + 2) ** 2 * co4 if mode == "s2d" else n * n * co)
             case["bytes"] = (interior_bytes(x) + nbytes(*args[1:])
@@ -447,6 +454,8 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         case["kernel"] = lambda: K._conv5_impl(*args, mode=mode)
         if name == "conv5x5_s2d_fused[packed]":
             case["k7"], case["kernel"] = case["kernel"], packed(case["kernel"])
+        else:
+            case["engine"] = lambda: P.conv5x5_engine(*args, mode=mode)
         case["plain"] = lambda: K.conv5x5_s2d_fused_plain(*args, mode=mode)
         xp, wl, bl = pixel(args[0]), conv_weight(w5), bias4[:co4 // 4].to(dtype)
         case["library"] = lambda: F.conv2d(xp, wl, bl, padding=2)
@@ -627,9 +636,9 @@ def check_kernels() -> dict[str, float]:
     version computed in float32 and rounded once. A case's own ``limit``
     replaces the tolerance (P3: exact; P1 stage_only: 1e-5 of the absolute
     sum); P1's full and matmul_only and P2 must equal K1 on the same inputs
-    bit for bit, and K11's difference from K7 is printed. In bfloat16, K1
-    (no pool) and K3 must equal the engine's kernel on the same inputs bit
-    for bit: the wgmma mainloop sums in the engine's order."""
+    bit for bit, and K11's difference from K7 is printed. In bfloat16, K1,
+    K2 (both outputs), K3 and K7 must equal the engine's kernel on the same
+    inputs bit for bit: the wgmma mainloop sums in the engine's order."""
     worst: dict[str, float] = {}
     for i, (name, label, problem) in enumerate(KERNEL_CASES):
         dtypes = CASE_DTYPES.get(name, (torch.float32, torch.bfloat16))
@@ -678,35 +687,37 @@ def check_kernels() -> dict[str, float]:
                 seq = f", {against_sequential(name, label, dtype, out, case['sequential'])}"
             for ref_kernel in ("k1", "k7", "engine"):
                 if ref_kernel in case and (ref_kernel != "engine" or dtype == torch.bfloat16):
-                    seq = f", {against_kernel(name, label, dtype, out[0], case, ref_kernel)}"
+                    seq = f", {against_kernel(name, label, dtype, out, case, ref_kernel)}"
             print(f"kernel {name} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
                   f"({bound}){rings}{seq}")
     return worst
 
 
 SEQUENTIAL_DIFF: dict[str, float] = {}  # chain -> largest difference from its sequential kernels
-KERNEL_DIFF: dict[str, float] = {}  # K11 / P1 / P2 / K1 / K3 -> from K7 / K1 / the engine
+KERNEL_DIFF: dict[str, float] = {}  # K11 / P1, P2 / K1-K3, K7 -> from K7 / K1 / the engine
 KERNEL_CASES = (SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES + PACKED_CASES
                 + PROBE_CASES)
 
 
-def against_kernel(name: str, label: str, dtype, out, case: dict, ref_kernel: str) -> str:
-    """A kernel's output against the kernel that computes the same function
+def against_kernel(name: str, label: str, dtype, out: tuple, case: dict,
+                   ref_kernel: str) -> str:
+    """A kernel's outputs against the kernel that computes the same function
     on the same inputs in the same order (K7 for K11, K1 for P1 and P2, the
-    engine's kernel for bf16 K1 and K3): the largest abs difference,
-    recorded in KERNEL_DIFF. P1 and P2 must equal K1, and K1 and K3 the
-    engine, bit for bit; K11 is held to the plain check's tolerance from K7
-    and its difference printed."""
+    engine's kernel for bf16 K1, K2, K3 and K7): the largest abs difference,
+    recorded in KERNEL_DIFF. P1 and P2 must equal K1, and the wgmma kernels
+    the engine (K2 both its outputs), bit for bit; K11 is held to the plain
+    check's tolerance from K7 and its difference printed."""
     ref = case[ref_kernel]()
+    ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
-    diff = float((out.float() - ref.float()).abs().max())
+    diff = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
     what = {"k1": "K1", "k7": "K7", "engine": "the engine"}[ref_kernel]
     if ref_kernel != "k7":
         check(diff == 0.0, f"{name} {label} {dtype}: {diff:.3e} from {what}, not bit-identical")
     else:
         tol = 1e-4 if dtype == torch.float32 else 1e-2
-        check(bool(((out.float() - ref.float()).abs() <= tol + tol * ref.float().abs()).all()),
-              f"{name} {label} {dtype}: {diff:.3e} from K7")
+        check(all(bool(((o.float() - r.float()).abs() <= tol + tol * r.float().abs()).all())
+                  for o, r in zip(out, ref)), f"{name} {label} {dtype}: {diff:.3e} from K7")
     KERNEL_DIFF[name] = max(KERNEL_DIFF.get(name, 0.0), diff)
     return f"bit-identical to {what}" if diff == 0 else f"max abs {diff:.3e} from {what}"
 
@@ -740,10 +751,10 @@ def time_case(name: str, problem: tuple, dtype, seed: int) -> dict:
     their inputs cold: the graph rotates over copies of the case (same
     values from the same seed, buffers of their own) whose bytes together
     exceed twice the L2, so no launch finds its inputs in L2 from the launch
-    before. The plain version, no yardstick of speed, runs on one copy. K1
-    (no pool) and K3 also time the engine's kernel on the same copies, in
-    turns with the wgmma mainloop (engine, kernel, kernel, engine): ``ms``
-    and ``engine_ms`` are the faster of each pair, ``turns_ms`` all four."""
+    before. The plain version, no yardstick of speed, runs on one copy. K1,
+    K2, K3 and K7 also time the engine's kernel on the same copies, in turns
+    with the wgmma mainloop (engine, kernel, kernel, engine): ``ms`` and
+    ``engine_ms`` are the faster of each pair, ``turns_ms`` all four."""
     from depgan_tpu_torch.utils.profiling import cuda_graph_ms
 
     first = make_case(name, problem, dtype, seed)
@@ -776,8 +787,9 @@ SHAPE_TIMES: dict[tuple, dict] = {}  # (kernel, problem) -> time_case of its las
 def replay(shapes: dict, dtype, what: str) -> dict[str, dict]:
     """Times every (kernel, problem) of a run with its count of launches
     and sums them by kernel: ms, plain ms, library ms (null where a launch
-    has no library call), bound ms and, for K1 and K3, the engine's ms of
-    that run's kernel launches. Each shape's times are kept in SHAPE_TIMES."""
+    has no library call), bound ms and, for the wgmma kernels, the engine's
+    ms of that run's kernel launches. Each shape's times are kept in
+    SHAPE_TIMES."""
     totals: dict[str, dict] = {}
     for i, ((name, problem), count) in enumerate(sorted(shapes.items(), key=str)):
         t = SHAPE_TIMES[name, problem] = time_case(name, problem, dtype, seed=100 + i)
@@ -1550,7 +1562,7 @@ def check_engine_build(_cuda) -> None:
     engine (``s2d_gemm``), of the wgmma mainloop (``s2d_wgmma``) and of the
     window kernels, from the report kept beside the library; the production
     engine held to ENGINE_FIGURES and the mainloop to WGMMA_FIGURES. Then
-    the library's own load plan of every K1 (no pool) and K3 shape of the
+    the library's own load plan of every K1, K2, K3 and K7 shape of the
     serving forward and the superstep, held to ``ops/wgmma_plan.py``, with
     the A-load route each takes."""
     from depgan_tpu_torch.ops import wgmma_plan
@@ -1561,10 +1573,10 @@ def check_engine_build(_cuda) -> None:
     for line in engine_registers.format_rows(rows):
         print(f"build: {line}")
     wgmma = engine_registers.wgmma_figures(log)
-    for (bn, mt), f in wgmma.items():
-        print(f"build: s2d_wgmma<{bn}, {mt}>: {f.get('registers')} registers, {f.get('stack')} "
-              f"bytes stack frame, {f.get('spill_stores')} / {f.get('spill_loads')} bytes spill "
-              f"stores / loads")
+    for (bn, mt, pool), f in wgmma.items():
+        print(f"build: s2d_wgmma<{bn}, {mt}, {str(pool).lower()}>: {f.get('registers')} "
+              f"registers, {f.get('stack')} bytes stack frame, {f.get('spill_stores')} / "
+              f"{f.get('spill_loads')} bytes spill stores / loads")
     for name, fig in _cuda.ptxas_figures(log).items():
         if "window_conv" in name:
             print(f"build: {name}: {fig.get('registers')} registers, {fig.get('stack')} bytes "
@@ -1582,14 +1594,19 @@ def check_engine_build(_cuda) -> None:
     for name, label, problem in SERVING_CASES + TRAINING_CASES:
         if name not in WGMMA_KERNELS:
             continue
+        kind = {}
         if name == "conv3x3_s2d_fused2":
             n, c4a, c4b, co4 = problem
             c4s = (c4a, c4b)
         else:
-            n, c4, co4, _ = problem
+            n, c4, co4, mode = problem
             c4s = (c4,)
-        plan = wgmma_plan.plan(n, c4s, co4)
-        check(wgmma_plan.library_plan(n, c4s, co4) == wgmma_plan.as_ints(plan),
+            if name == "conv3x3_s2d_fused_pool":
+                kind = {"pool": mode}
+            elif name == "conv5x5_s2d_fused":
+                kind = {"gather": "conv5x5"}
+        plan = wgmma_plan.plan(n, c4s, co4, **kind)
+        check(wgmma_plan.library_plan(n, c4s, co4, **kind) == wgmma_plan.as_ints(plan),
               f"{name} {label}: the library's wgmma plan differs from ops/wgmma_plan.py")
         print(f"build: wgmma plan {name} [{label}]: route {plan.route}, tile {plan.bm} x "
               f"{plan.bn}, {plan.n_blocks} column block(s), A box {plan.box}")

@@ -1,7 +1,7 @@
 // Implicit-GEMM engine shared by the s2d kernels of the serving and training
-// paths. Bf16 K1 without a pool and bf16 K3 run the wgmma mainloop of
-// s2d_wgmma.cuh instead; the engine's bf16 versions of them stay as the
-// reference whose sum order the chains and probes reproduce.
+// paths. Bf16 K1, K2, K3 and K7 run the wgmma mainloop of s2d_wgmma.cuh
+// instead; the engine's bf16 versions of them stay as the reference whose
+// sum order the mainloop, the chains and the probes reproduce.
 //
 // Every kernel of the path is one GEMM whose rows are output positions
 // (b, y, x) of a padded space-to-depth plane (batch, n+2, n+2, co4) and whose

@@ -1,9 +1,9 @@
 // The s2d GEMM kernels for Hopper (sm_90a): the C entry points over the
-// implicit-GEMM engine of s2d_gemm.cuh and, for bf16 K1 without a pool and
-// bf16 K3, the wgmma mainloop of s2d_wgmma.cuh (wgmma_kernels.cu). An
-// engine launch fills one Problem: s2d_gemm<T, 64> for outputs of at most
-// 64 channels, s2d_gemm<T, 128> otherwise, and s2d_gemm<T, 256> for the
-// pooled conv with 4Co = 256.
+// implicit-GEMM engine of s2d_gemm.cuh and, for bf16 K1, K2, K3 and K7, the
+// wgmma mainloop of s2d_wgmma.cuh (wgmma_kernels.cu). An engine launch fills
+// one Problem: s2d_gemm<T, 64> for outputs of at most 64 channels,
+// s2d_gemm<T, 128> otherwise, and s2d_gemm<T, 256> for the pooled conv with
+// 4Co = 256.
 //
 // Replaces the Pallas kernels of depgan_tpu/ops/conv_s2d_pallas.py:
 //  - conv3x3_s2d_fused (:758, kernel _kernel :490): a 3x3 SAME conv on a
@@ -18,7 +18,8 @@
 //  - conv3x3_s2d_fused_pool (:1043, kernel _kernel_pool :1022): the relu conv
 //    that also writes the 2x2 max-pool of its stored output, either as the
 //    next level's padded s2d plane or in the pixel domain. Its blocks own
-//    every channel group of their positions and pool from shared memory.
+//    every channel group of their positions: the engine pools from shared
+//    memory, the wgmma mainloop from registers.
 //  - conv3x3_s2d_fused_head (:1145, kernel _kernel mode 'head' :589-606):
 //    the relu conv of p1's conv_out with the generator's 1x1 head in the
 //    epilogue: tanh(bf16(relu(y + b)) @ bf16(W_head) + b_head), summed in
@@ -52,11 +53,13 @@
 //    ridge, so these GEMMs are bound by their planes' traffic; 4Co <= 64
 //    takes 256 x 64 tiles so that a block's columns are not mostly padding.
 //
-// K1 and K3 take the wgmma mainloop in bf16 (K1 without a pool) and the
-// engine in float32, whose CUDA-core FMAs are the exact indexing check;
-// depgan_conv3x3_s2d_engine launches the engine's bf16 K1 / K3 as well, as
-// the reference that the chains (K10, K12) and the probes P1 and P2 sum
-// like: no wrapper calls it.
+// K1, K2, K3 and K7 take the wgmma mainloop in bf16 and the engine in
+// float32, whose CUDA-core FMAs are the exact indexing check; a bf16 shape
+// the mainloop refuses is an error, never an engine launch.
+// depgan_conv3x3_s2d_engine (K1, K2, K3) and depgan_conv5x5_s2d_engine (K7)
+// launch the engine in either dtype, the float32 path of those entry points
+// and, in bf16, the reference that the mainloop, the chains (K10, K12) and
+// the probes P1 and P2 sum like: no wrapper calls them.
 //
 // dtype: 0 = float32, 1 = bfloat16. Every entry point returns
 // cudaGetLastError() after its launch, or an error code for arguments the
@@ -94,31 +97,28 @@ using Elem = std::remove_pointer_t<decltype(P::out)>;
 
 }  // namespace
 
+// The engine's K1 (x2 == nullptr; with a pool, K2) or K3 (relu) in either
+// dtype: what depgan_conv3x3_s2d_fused and depgan_conv3x3_s2d_fused2 launch
+// in float32, and launched in bf16 before the wgmma mainloop took them over.
 // epilogue: 0 = relu, 1 = film, 2 = none. pool: 0 = none, 1 = pixel, 2 = s2d.
-extern "C" int depgan_conv3x3_s2d_fused(int dtype, const void* x, const void* w4,
-                                        const void* bias, const void* gamma, const void* beta,
-                                        void* out, void* pooled, int batch, int n, int c4,
-                                        int co4, int epilogue, int pool, void* stream) {
-  if (epilogue == kFilm && (c4 != co4 || gamma == nullptr || beta == nullptr))
-    return cudaErrorInvalidValue;
+extern "C" int depgan_conv3x3_s2d_engine(int dtype, const void* x1, const void* x2,
+                                         const void* w1, const void* w2, const void* bias,
+                                         const void* gamma, const void* beta, void* out,
+                                         void* pooled, int batch, int n, int c4a, int c4b,
+                                         int co4, int epilogue, int pool, void* stream) {
+  const bool two = x2 != nullptr;
   if (epilogue != kRelu && epilogue != kFilm && epilogue != kNone) return cudaErrorInvalidValue;
-  if (pool != kPoolNone && (epilogue != kRelu || pooled == nullptr)) return cudaErrorInvalidValue;
-  if (dtype == 1 && pool == kPoolNone) {
-    wg::Conv cv{};
-    cv.x[0] = static_cast<const __nv_bfloat16*>(x);
-    cv.w[0] = static_cast<const __nv_bfloat16*>(w4);
-    cv.c4[0] = c4;
-    cv.n_ops = 1, cv.batch = batch, cv.n = n, cv.co4 = co4, cv.epilogue = epilogue;
-    cv.bias = static_cast<const float*>(bias);
-    cv.gamma = static_cast<const float*>(gamma);
-    cv.beta = static_cast<const float*>(beta);
-    cv.out = static_cast<__nv_bfloat16*>(out);
-    return wg::conv3x3(cv, static_cast<cudaStream_t>(stream));
-  }
+  if (epilogue == kFilm && (two || c4a != co4 || gamma == nullptr || beta == nullptr))
+    return cudaErrorInvalidValue;
+  if (two && epilogue != kRelu) return cudaErrorInvalidValue;
+  if (pool != kPoolNone && pool != kPoolPixel && pool != kPoolS2d) return cudaErrorInvalidValue;
+  if (pool != kPoolNone && (two || epilogue != kRelu || pooled == nullptr))
+    return cudaErrorInvalidValue;
   return dispatch(dtype, stream, [&](auto& pr) {
     using T = Elem<std::remove_reference_t<decltype(pr)>>;
-    pr.op[0] = {static_cast<const T*>(x), static_cast<const T*>(w4), c4, 4 * c4};
-    pr.n_ops = 1;
+    pr.op[0] = {static_cast<const T*>(x1), static_cast<const T*>(w1), c4a, 4 * c4a};
+    pr.op[1] = {static_cast<const T*>(x2), static_cast<const T*>(w2), c4b, 4 * c4b};
+    pr.n_ops = two ? 2 : 1;
     pr.gather = kGatherConv3x3;
     pr.batch = batch;
     pr.n = n;
@@ -134,37 +134,46 @@ extern "C" int depgan_conv3x3_s2d_fused(int dtype, const void* x, const void* w4
   });
 }
 
+extern "C" int depgan_conv3x3_s2d_fused(int dtype, const void* x, const void* w4,
+                                        const void* bias, const void* gamma, const void* beta,
+                                        void* out, void* pooled, int batch, int n, int c4,
+                                        int co4, int epilogue, int pool, void* stream) {
+  if (dtype != 1)
+    return depgan_conv3x3_s2d_engine(dtype, x, nullptr, w4, nullptr, bias, gamma, beta, out,
+                                     pooled, batch, n, c4, 0, co4, epilogue, pool, stream);
+  if (epilogue == kFilm && (gamma == nullptr || beta == nullptr)) return cudaErrorInvalidValue;
+  wg::Conv cv{};
+  cv.x[0] = static_cast<const __nv_bfloat16*>(x);
+  cv.w[0] = static_cast<const __nv_bfloat16*>(w4);
+  cv.c4[0] = c4;
+  cv.gather = kGatherConv3x3, cv.n_ops = 1, cv.batch = batch, cv.n = n, cv.co4 = co4;
+  cv.epilogue = epilogue, cv.pool = pool;
+  cv.bias = static_cast<const float*>(bias);
+  cv.gamma = static_cast<const float*>(gamma);
+  cv.beta = static_cast<const float*>(beta);
+  cv.out = static_cast<__nv_bfloat16*>(out);
+  cv.pooled = static_cast<__nv_bfloat16*>(pooled);
+  return wg::conv(cv, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int depgan_conv3x3_s2d_fused2(int dtype, const void* x1, const void* x2,
                                          const void* w1, const void* w2, const void* bias,
                                          void* out, int batch, int n, int c4a, int c4b, int co4,
                                          void* stream) {
-  if (dtype == 1) {
-    wg::Conv cv{};
-    cv.x[0] = static_cast<const __nv_bfloat16*>(x1);
-    cv.x[1] = static_cast<const __nv_bfloat16*>(x2);
-    cv.w[0] = static_cast<const __nv_bfloat16*>(w1);
-    cv.w[1] = static_cast<const __nv_bfloat16*>(w2);
-    cv.c4[0] = c4a, cv.c4[1] = c4b;
-    cv.n_ops = 2, cv.batch = batch, cv.n = n, cv.co4 = co4, cv.epilogue = kRelu;
-    cv.bias = static_cast<const float*>(bias);
-    cv.out = static_cast<__nv_bfloat16*>(out);
-    return wg::conv3x3(cv, static_cast<cudaStream_t>(stream));
-  }
-  return dispatch(dtype, stream, [&](auto& pr) {
-    using T = Elem<std::remove_reference_t<decltype(pr)>>;
-    pr.op[0] = {static_cast<const T*>(x1), static_cast<const T*>(w1), c4a, 4 * c4a};
-    pr.op[1] = {static_cast<const T*>(x2), static_cast<const T*>(w2), c4b, 4 * c4b};
-    pr.n_ops = 2;
-    pr.gather = kGatherConv3x3;
-    pr.batch = batch;
-    pr.n = n;
-    pr.p_in = n + 2;
-    pr.co4 = co4;
-    pr.epilogue = kRelu;
-    pr.pool = kPoolNone;
-    pr.bias = static_cast<const float*>(bias);
-    pr.out = static_cast<T*>(out);
-  });
+  if (dtype != 1)
+    return depgan_conv3x3_s2d_engine(dtype, x1, x2, w1, w2, bias, nullptr, nullptr, out,
+                                     nullptr, batch, n, c4a, c4b, co4, kRelu, kPoolNone, stream);
+  wg::Conv cv{};
+  cv.x[0] = static_cast<const __nv_bfloat16*>(x1);
+  cv.x[1] = static_cast<const __nv_bfloat16*>(x2);
+  cv.w[0] = static_cast<const __nv_bfloat16*>(w1);
+  cv.w[1] = static_cast<const __nv_bfloat16*>(w2);
+  cv.c4[0] = c4a, cv.c4[1] = c4b;
+  cv.gather = kGatherConv3x3, cv.n_ops = 2, cv.batch = batch, cv.n = n, cv.co4 = co4;
+  cv.epilogue = kRelu, cv.pool = kPoolNone;
+  cv.bias = static_cast<const float*>(bias);
+  cv.out = static_cast<__nv_bfloat16*>(out);
+  return wg::conv(cv, static_cast<cudaStream_t>(stream));
 }
 
 // w_head: (co4, h4) bf16, b_head: (h4,) f32, out: (batch, n, n, h4) f32.
@@ -211,11 +220,13 @@ extern "C" int depgan_deconv_s2d(int dtype, const void* x, const void* w2, const
   });
 }
 
+// The engine's K7 in either dtype: what depgan_conv5x5_s2d_fused launches
+// in float32, and launched in bf16 before the wgmma mainloop took it over.
 // w9: (3, 3, c4, co4) rows of the transformed 5x5 kernel. epilogue: 0 = relu,
 // 2 = none.
-extern "C" int depgan_conv5x5_s2d_fused(int dtype, const void* x, const void* w9,
-                                        const void* bias, void* out, int batch, int n, int c4,
-                                        int co4, int epilogue, void* stream) {
+extern "C" int depgan_conv5x5_s2d_engine(int dtype, const void* x, const void* w9,
+                                         const void* bias, void* out, int batch, int n, int c4,
+                                         int co4, int epilogue, void* stream) {
   if (epilogue != kRelu && epilogue != kNone) return cudaErrorInvalidValue;
   return dispatch(dtype, stream, [&](auto& pr) {
     using T = Elem<std::remove_reference_t<decltype(pr)>>;
@@ -233,36 +244,22 @@ extern "C" int depgan_conv5x5_s2d_fused(int dtype, const void* x, const void* w9
   });
 }
 
-// The engine's K1 (x2 == nullptr) or K3 (relu) in either dtype: what
-// depgan_conv3x3_s2d_fused (pool 0) and depgan_conv3x3_s2d_fused2 launch in
-// float32, and launched in bf16 before the wgmma mainloop took it over.
-extern "C" int depgan_conv3x3_s2d_engine(int dtype, const void* x1, const void* x2,
-                                         const void* w1, const void* w2, const void* bias,
-                                         const void* gamma, const void* beta, void* out,
-                                         int batch, int n, int c4a, int c4b, int co4,
-                                         int epilogue, void* stream) {
-  const bool two = x2 != nullptr;
-  if (epilogue != kRelu && epilogue != kFilm && epilogue != kNone) return cudaErrorInvalidValue;
-  if (epilogue == kFilm && (two || c4a != co4 || gamma == nullptr || beta == nullptr))
-    return cudaErrorInvalidValue;
-  if (two && epilogue != kRelu) return cudaErrorInvalidValue;
-  return dispatch(dtype, stream, [&](auto& pr) {
-    using T = Elem<std::remove_reference_t<decltype(pr)>>;
-    pr.op[0] = {static_cast<const T*>(x1), static_cast<const T*>(w1), c4a, 4 * c4a};
-    pr.op[1] = {static_cast<const T*>(x2), static_cast<const T*>(w2), c4b, 4 * c4b};
-    pr.n_ops = two ? 2 : 1;
-    pr.gather = kGatherConv3x3;
-    pr.batch = batch;
-    pr.n = n;
-    pr.p_in = n + 2;
-    pr.co4 = co4;
-    pr.epilogue = epilogue;
-    pr.pool = kPoolNone;
-    pr.bias = static_cast<const float*>(bias);
-    pr.gamma = static_cast<const float*>(gamma);
-    pr.beta = static_cast<const float*>(beta);
-    pr.out = static_cast<T*>(out);
-  });
+extern "C" int depgan_conv5x5_s2d_fused(int dtype, const void* x, const void* w9,
+                                        const void* bias, void* out, int batch, int n, int c4,
+                                        int co4, int epilogue, void* stream) {
+  if (dtype != 1)
+    return depgan_conv5x5_s2d_engine(dtype, x, w9, bias, out, batch, n, c4, co4, epilogue,
+                                     stream);
+  if (epilogue != kRelu && epilogue != kNone) return cudaErrorInvalidValue;
+  wg::Conv cv{};
+  cv.x[0] = static_cast<const __nv_bfloat16*>(x);
+  cv.w[0] = static_cast<const __nv_bfloat16*>(w9);
+  cv.c4[0] = c4;
+  cv.gather = kGatherConv5x5, cv.n_ops = 1, cv.batch = batch, cv.n = n, cv.co4 = co4;
+  cv.epilogue = epilogue, cv.pool = kPoolNone;
+  cv.bias = static_cast<const float*>(bias);
+  cv.out = static_cast<__nv_bfloat16*>(out);
+  return wg::conv(cv, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* depgan_cuda_error_string(int code) {

@@ -1,12 +1,16 @@
-// The bf16 wgmma mainloop of K1 (conv3x3_s2d_fused: relu, film, none; no
-// pool) and K3 (conv3x3_s2d_fused2) for Hopper (sm_90a): what the host and
-// the kernel share. The kernel is in wgmma_kernels.cu.
+// The bf16 wgmma mainloop of K1 (conv3x3_s2d_fused: relu, film, none), K2
+// (its pooled form, conv3x3_s2d_fused_pool), K3 (conv3x3_s2d_fused2) and K7
+// (conv5x5_s2d_fused: relu, none) for Hopper (sm_90a): what the host and the
+// kernel share. The kernel is in wgmma_kernels.cu.
 //
-// The GEMM is the engine's (s2d_gemm.cuh, kGatherConv3x3): rows m = (b, y, x)
-// are output positions, k = (tap, dst, c) over 4 taps x 4C of each operand,
-// operand 1's k range after operand 0's, and row m at depth k reads
-// x[b, y+dy, x+dx, (3-dst)*C + c] of the padded plane with
-// dy = (tap>>1) + (dst>>1), dx = (tap&1) + (dst&1).
+// The GEMMs are the engine's (s2d_gemm.cuh): rows m = (b, y, x) are output
+// positions, and the gather decides what depth k of row m reads.
+//  - kGatherConv3x3 (K1, K2, K3): k = (tap, dst, c) over 4 taps x 4C of each
+//    operand, operand 1's k range after operand 0's; x[b, y+dy, x+dx,
+//    (3-dst)*C + c] of the padded plane with dy = (tap>>1) + (dst>>1),
+//    dx = (tap&1) + (dst&1).
+//  - kGatherConv5x5 (K7): k = (tap, c) over 9 taps x 4C; x[b, y+dy, x+dx, c]
+//    with dy = tap / 3, dx = tap % 3.
 //
 // A block owns BM rows and BN columns: every output column up to 4Co = 256,
 // so each A k-tile is loaded once (4Co = 384 takes two blocks of 192), and
@@ -17,25 +21,36 @@
 // from shared memory through matrix descriptors), into float32 registers.
 //
 // A k-tile of A is two 32-deep halves, each BM rows x 64 bytes in the
-// 64-byte-swizzled K-major layout. With C a multiple of 32 a half is one
-// (tap, dst) group's channel chunk, and the BM rows of a tile read a box of
-// the plane (B, P, P, 4C) viewed as a 4-d tensor (4C, P, P, B):
+// 64-byte-swizzled K-major layout. Where a half is one channel chunk of one
+// tap group (a group is C channels of the 3x3 gather, 4C of the 5x5) and K is
+// a whole number of k-tiles, the BM rows of a tile read a box of the plane
+// (B, P, P, 4C) viewed as a 4-d tensor (4C, P, P, B):
 //   extents (32, bx, by, bb), origin (c, x0 + dx, y0 + dy, b0)
 // with (x0, y0, b0) the tile's first position: one image row of 128 at
-// n = 128 and BM = 128, two rows of 128 or 64 at n = 128 or 64 with BM 256
-// or 128, several images when n*n < BM. Such a launch loads A by TMA (route
-// kRouteTma). Otherwise (C = 8, the first level-1 conv, or n neither a
-// multiple nor a divisor of 128) the producer warpgroup gathers A, 128 rows
-// a tile, in 16-byte cp.async copies into the same layout (route
-// kRouteCpAsync). B, the weight rows (k, 4Co), arrives by TMA in
-// 64 x 64 boxes, 128-byte swizzled, N-major. The route is fixed at launch by
-// geometry(); ops/wgmma_plan.py is its mirror in Python, which the CPU tests
-// check against the plain gather and chip_smoke.py against this header.
+// n = 128 and BM = 128, two rows of 128 or four of 64 at BM 256, several
+// images when n*n < BM. Such a launch loads A by TMA (route kRouteTma).
+// Otherwise (K1's C = 8 entry conv, K7's 4C = 16 entry conv, or n neither a
+// multiple nor a divisor of 128) the producer warpgroup gathers A, 128 rows a
+// tile, in 16-byte cp.async copies into the same layout (route
+// kRouteCpAsync), copying zeros past K where K is no whole k-tile (the 5x5 at
+// 4C = 16: K = 144 of 192). B, the weight rows (k, 4Co), arrives by TMA in
+// 64 x 64 boxes, 128-byte swizzled, N-major, zeros past K and past 4Co. The
+// route is fixed at launch by geometry(); ops/wgmma_plan.py is its mirror in
+// Python, which the CPU tests check against the plain gathers and
+// chip_smoke.py against this header.
+//
+// K2's pool needs every column of a row in one block (n_blocks 1): a 2 x 2
+// pool window is the four channel groups of one s2d position. It takes 4Co
+// = 32, 64, 128 or 256 (the generator's widths at first_fm 8 to 32), where a
+// lane's runs of 8 columns after the epilogue's transpose lie each in one
+// group at the same channels over the column loop; other widths are refused.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "s2d_gemm.cuh"
 
 namespace depgan {
 namespace wg {
@@ -45,19 +60,23 @@ constexpr int kBK = 64;     // GEMM depth of one ring stage: 128 bytes of bf16
 constexpr int kHalf = 32;   // depth of one A box: 64 bytes, the 64-byte swizzle
 constexpr int kVec = 8;     // depth of one cp.async copy: 16 bytes
 constexpr int kStages = 4;  // ring stages (48 KB each at BN = 256)
+constexpr int kPast = -1;   // a plan entry past K: its copies are zeros
 
 enum Route : int { kRouteTma = 0, kRouteCpAsync = 1 };
 
-// One bf16 launch of K1 (n_ops 1) or K3 (n_ops 2, relu) without a pool.
+// One bf16 launch: K1 or K2 (gather kGatherConv3x3, n_ops 1), K3 (n_ops 2,
+// relu), or K7 (kGatherConv5x5, n_ops 1, relu or none).
 struct Conv {
   const __nv_bfloat16* x[2];  // (batch, n+2, n+2, c4[o]) padded planes
-  const __nv_bfloat16* w[2];  // (4 * c4[o], co4) weight rows
+  const __nv_bfloat16* w[2];  // (depth(gather, c4[o]), co4) weight rows
   int c4[2];
-  int n_ops, batch, n, co4, epilogue;  // epilogue: the engine's kRelu, kFilm, kNone
+  int gather, n_ops, batch, n, co4, epilogue;  // the engine's Gather and Epilogue
+  int pool;            // the engine's PoolMode; K2 only
   const float* bias;   // (co4,)
   const float* gamma;  // (batch, co4), film only
   const float* beta;   // (batch, co4), film only
-  __nv_bfloat16* out;  // (batch, n+2, n+2, co4)
+  __nv_bfloat16* out;     // (batch, n+2, n+2, co4)
+  __nv_bfloat16* pooled;  // pixel: (batch, n, n, co4/4); s2d: (batch, n/2+2, n/2+2, co4)
 };
 
 struct Geometry {
@@ -68,20 +87,29 @@ struct Geometry {
   int box[4];    // A box extents (32, bx, by, bb); zeros for cp.async
 };
 
+// GEMM depth of an operand with c4 channels: 4 taps or 9 taps of 4C.
+__host__ __device__ inline int depth(int gather, int c4) {
+  return (gather == kGatherConv5x5 ? 9 : 4) * c4;
+}
+
 // Whether every tile of bm rows is one box of the plane (n a multiple or a
-// divisor of bm) and every operand's C whole kHalf-deep chunks.
-__host__ __device__ inline bool boxes(int n, int bm, const int* c4, int n_ops) {
+// divisor of bm), every 32-deep half of every operand one chunk of one tap
+// group (C channels for the 3x3 gather, 4C for the 5x5), and K a whole number
+// of k-tiles (so no box reads past it: the 5x5's 9 * 4C needs 4C % 64 == 0).
+__host__ __device__ inline bool boxes(int gather, int n, int bm, const int* c4, int n_ops) {
   bool ok = n % bm == 0 || bm % n == 0;
-  for (int o = 0; o < n_ops; ++o) ok = ok && (c4[o] / 4) % kHalf == 0;
+  for (int o = 0; o < n_ops; ++o)
+    ok = ok && (gather == kGatherConv5x5 ? c4[o] % (2 * kHalf) == 0 : (c4[o] / 4) % kHalf == 0);
   return ok;
 }
 
-__host__ __device__ inline Geometry geometry(int n, const int* c4, int n_ops, int co4) {
+__host__ __device__ inline Geometry geometry(int gather, int n, const int* c4, int n_ops,
+                                             int co4) {
   Geometry g{};
   g.n_blocks = (co4 + 255) / 256;
   g.bn = ((co4 + g.n_blocks - 1) / g.n_blocks + 63) / 64 * 64;
-  g.bm = g.bn <= 128 && boxes(n, 2 * kBM, c4, n_ops) ? 2 * kBM : kBM;
-  g.route = boxes(n, g.bm, c4, n_ops) ? kRouteTma : kRouteCpAsync;
+  g.bm = g.bn <= 128 && boxes(gather, n, 2 * kBM, c4, n_ops) ? 2 * kBM : kBM;
+  g.route = boxes(gather, n, g.bm, c4, n_ops) ? kRouteTma : kRouteCpAsync;
   if (g.route == kRouteTma) {
     const int bx = n >= g.bm ? g.bm : n;
     const int by = n >= g.bm ? 1 : (n < g.bm / n ? n : g.bm / n);
@@ -90,15 +118,47 @@ __host__ __device__ inline Geometry geometry(int n, const int* c4, int n_ops, in
   return g;
 }
 
+// Whether the mainloop takes a launch of these widths (the engine's Gather
+// and PoolMode): whole 16-byte runs of one tap group (4C % 32 == 0 for the
+// 3x3 gather, % 8 for the 5x5) whose channels fit the plan's 16 bits, one
+// operand for the 5x5, and a pool only on one 3x3 operand at an even n for
+// s2d and at a 4Co whose columns lie in one block (n_blocks 1) and reach,
+// after the epilogue's transpose, each lane as the same channels of every
+// group (4Co = BN = 128, 256) or of some groups, the quad holding the others
+// (4Co = 32, 64 in a block of 64).
+__host__ __device__ inline bool takes(int gather, int n, const int* c4, int n_ops, int co4,
+                                      int pool) {
+  const bool conv5 = gather == kGatherConv5x5;
+  bool ok = (conv5 || gather == kGatherConv3x3) && n > 0 && co4 > 0 && co4 % 8 == 0 &&
+            n_ops >= 1 && n_ops <= (conv5 ? 1 : 2);
+  for (int o = 0; o < n_ops; ++o)
+    ok = ok && c4[o] > 0 && c4[o] % (conv5 ? kVec : 4 * kVec) == 0 && c4[o] <= 0xFFFF;
+  if (pool == kPoolNone) return ok;
+  return ok && (pool == kPoolPixel || (pool == kPoolS2d && n % 2 == 0)) && !conv5 &&
+         n_ops == 1 && (co4 == 32 || co4 == 64 || co4 == 128 || co4 == 256);
+}
+
 // What GEMM depth k0 of an operand with c4 channels reads: the plane's
 // channel and the tap's offset (dx, dy) from the row's own position. A run
 // of kHalf (TMA) or kVec (cp.async) depths from k0 stays inside one group.
 struct Chunk {
   int c, dx, dy;
 };
-__host__ __device__ inline Chunk chunk(int c4, int k0) {
+__host__ __device__ inline Chunk chunk(int gather, int c4, int k0) {
+  if (gather == kGatherConv5x5) {
+    const int tap = k0 / c4;
+    return {k0 % c4, tap % 3, tap / 3};
+  }
   const int c = c4 / 4, tap = k0 / c4, r = k0 % c4, dst = r / c;
   return {(3 - dst) * c + r % c, (tap & 1) + (dst & 1), (tap >> 1) + (dst >> 1)};
+}
+
+// The load plan's entry for the kVec-deep run at depth k0 of an operand:
+// c | dx << 16 | dy << 20, or kPast at and past K.
+__host__ __device__ inline int plan_entry(int gather, int c4, int k0) {
+  if (k0 >= depth(gather, c4)) return kPast;
+  const Chunk ck = chunk(gather, c4, k0);
+  return ck.c | ck.dx << 16 | ck.dy << 20;
 }
 
 // The position (x, y, b) of GEMM row m: a tile's box origin for its first row.
@@ -113,7 +173,7 @@ __host__ __device__ inline Origin origin(int n, int64_t m) {
 
 // Launches one problem; returns cudaGetLastError() after the launch, or an
 // error code for what the mainloop does not take.
-cudaError_t conv3x3(const Conv& cv, cudaStream_t stream);
+cudaError_t conv(const Conv& cv, cudaStream_t stream);
 
 }  // namespace wg
 }  // namespace depgan

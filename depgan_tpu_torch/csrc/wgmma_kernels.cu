@@ -1,5 +1,5 @@
-// The bf16 wgmma mainloop of K1 and K3 for Hopper (sm_90a); the design is in
-// s2d_wgmma.cuh.
+// The bf16 wgmma mainloop of K1, K2, K3 and K7 for Hopper (sm_90a); the
+// design is in s2d_wgmma.cuh.
 //
 // Replaces, beside the engine's CUDA-core float32 path (s2d_kernels.cu), the
 // bf16 launches of the Pallas kernels of depgan_tpu/ops/conv_s2d_pallas.py:
@@ -7,29 +7,43 @@
 //    film or none and no pool: on the serving path at n = 128 (4C 32 or 128
 //    -> 128) and n = 64 (128 or 256 -> 256); the backward's transposes add
 //    128 -> 256, 256 -> 128 and 256 -> 384.
+//  - conv3x3_s2d_fused_pool (:1043, kernel _kernel_pool :1022): the relu conv
+//    that also writes the 2x2 max-pool of its stored output, as the next
+//    level's padded s2d plane (L1: n = 128, 128 -> 128) or in pixels (L2:
+//    n = 64, 256 -> 256).
 //  - conv3x3_s2d_fused2 (:1289, kernel _kernel2 :1217): the two operands are
 //    two k ranges of one accumulator; p2 at n = 64 (384 + 256 -> 256) and p1
 //    at n = 128 (256 + 128 -> 128), K = 2560 and 1536.
+//  - conv5x5_s2d_fused (:1918 -> _conv5_impl :1940, kernel _kernel5 :1863):
+//    the critic's SAME 5x5 convs as 9 dense taps, relu or none; n = 128
+//    (4C 16 or 64 -> 64) and n = 64 (64 or 128 -> 128), and the transposes
+//    64 -> 16, 64 -> 64, 128 -> 64 and 128 -> 128: K = 144 to 1152.
 //
-// Bound: at these shapes the GEMMs do ~300 FLOP per byte of their planes,
-// at the H100's bf16 ridge, so the products' rate bounds them; the engine's
-// wmma (mma.sync) with a block-wide barrier every 32 deep ran them at ~18%
-// of the bf16 peak. Here the products are wgmma, which alone reaches the
-// tensor cores' full rate, and the loads run ahead of them through a ring of
-// 4 stages 64 deep with no block-wide barrier: a producer warpgroup (TMA, or
-// cp.async where the gather is not a box) and two consumer warpgroups that
-// hold their BM/2 x BN float32 accumulators in registers (setmaxnreg: 224 a
-// consumer thread, 56 a producer thread). The producer reads each k run's
-// (channel, dx, dy) from a plan the block computes once into shared memory,
-// so its loop does no division. The grid is persistent, one block an SM
-// walking over tiles, so the producer loads the next tile's k-tiles while
-// the consumers store this one. The epilogue reads the accumulators from
-// registers: a 4 x 4 transpose inside each quad of lanes gives every lane 8
-// consecutive columns of one row, so bias, relu or the FiLM site
-// (x + relu(y * gamma + beta)), one rounding to bf16 and the store take
-// 16-byte accesses; the block also writes its share of the zero ring. Each
-// output sums its k-products in 16-deep wgmma steps in k order, the order of
-// the engine's wmma steps, and equals the engine's output bit for bit.
+// Bound: the 3x3 GEMMs do ~300 FLOP per byte of their planes, at the H100's
+// bf16 ridge, so the products' rate bounds them; the 5x5 GEMMs do 40-140,
+// under it, so their planes' traffic does. The engine's wmma (mma.sync) with
+// a block-wide barrier every 32 deep ran the first at ~18% of the bf16 peak
+// and kept neither the loads nor the products busy. Here the products are
+// wgmma, which alone reaches the tensor cores' full rate, and the loads run
+// ahead of them through a ring of 4 stages 64 deep with no block-wide
+// barrier: a producer warpgroup (TMA, or cp.async where the gather is not a
+// box) and two consumer warpgroups that hold their BM/2 x BN float32
+// accumulators in registers (setmaxnreg: 224 a consumer thread, 56 a
+// producer thread). The producer reads each k run's (channel, dx, dy) from a
+// plan the block computes once into shared memory, so its loop does no
+// division. The grid is persistent, one block an SM walking over tiles, so
+// the producer loads the next tile's k-tiles while the consumers store this
+// one. The epilogue reads the accumulators from registers: a 4 x 4 transpose
+// inside each quad of lanes gives every lane 8 consecutive columns of one
+// row, so bias, relu or the FiLM site (x + relu(y * gamma + beta)), one
+// rounding to bf16 and the store take 16-byte accesses. K2's pool follows in
+// registers: with BN = 4Co, a lane's runs of 8 columns over the column loop
+// are the same 8 channels of each of the four channel groups, so the max of
+// the rounded values needs no other lane, and each lane stores its pooled
+// runs in 16-byte stores. The block also writes its share of the zero rings.
+// Each output sums its k-products in 16-deep wgmma steps in k order, the
+// order of the engine's wmma steps, and equals the engine's output bit for
+// bit (a K padded to whole k-tiles adds products of zeros).
 
 #include <cuda.h>
 
@@ -234,9 +248,11 @@ template <> struct Wgmma<256> {
   }
 };
 
-// MT m64 tiles a consumer warpgroup: BM = 128 MT rows a block.
-template <int BN, int MT>
+// MT m64 tiles a consumer warpgroup: BM = 128 MT rows a block. POOL: K2's
+// pooled epilogue, a separate instantiation so the others keep theirs lean.
+template <int BN, int MT, bool POOL>
 __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant__ Params p) {
+  static_assert(!POOL || BN == 64 || BN == 128 || BN == 256, "the pool takes BN = 64, 128, 256");
   constexpr int kBMt = kBM * MT, kA = MT * kABytes, kAHalf = MT * kAHalfBytes;
   constexpr int kStageBytes = kA + BN * kBK * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -248,13 +264,13 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
   const int tid = threadIdx.x, n = cv.n, side = n + 2, co4 = cv.co4;
   const bool tma = p.geo.route == kRouteTma;
   // The load plan, once a block: (channel, dx, dy) of every kVec-deep run of
-  // the GEMM depth, operand 0's then operand 1's, packed c | dx << 16 | dy << 20.
+  // the GEMM depth, operand 0's then operand 1's (plan_entry; kPast where a
+  // k-tile runs past the operand's K).
   int* plan = reinterpret_cast<int*>(smem + kStages * kStageBytes);
   const int runs0 = p.kt0 * (kBK / kVec), runs = p.kt_total * (kBK / kVec);
   for (int j = tid; j < runs; j += kThreadsWg) {
     const int op = j < runs0 ? 0 : 1;
-    const Chunk ck = chunk(cv.c4[op], (j - (op ? runs0 : 0)) * kVec);
-    plan[j] = ck.c | ck.dx << 16 | ck.dy << 20;
+    plan[j] = plan_entry(cv.gather, cv.c4[op], (j - (op ? runs0 : 0)) * kVec);
   }
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -263,8 +279,11 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  zero_ring(cv.out, cv.batch, side, co4, (int64_t)blockIdx.x * kThreadsWg + tid,
-            (int64_t)gridDim.x * kThreadsWg);
+  const int64_t ring0 = (int64_t)blockIdx.x * kThreadsWg + tid;
+  const int64_t ring_step = (int64_t)gridDim.x * kThreadsWg;
+  zero_ring(cv.out, cv.batch, side, co4, ring0, ring_step);
+  if (POOL && cv.pool == kPoolS2d)
+    zero_ring(cv.pooled, cv.batch, n / 2 + 2, co4, ring0, ring_step);
   __syncthreads();
 
   // Persistent: block i takes tiles i, i + grid, ... (column block fastest),
@@ -328,12 +347,15 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
               tma_2d(a + kA + j * kBBoxBytes, &p.b_map[op], &full[s], n0 + j * kBBox, k0);
           }
           const int c4 = cv.c4[op], e = plan[t * (kBK / kVec) + kv];
+          const bool live = e != kPast;  // past K: zeros, as B's box reads past its rows
           const __nv_bfloat16* x = cv.x[op];
-          const __nv_bfloat16* src = x + ((e >> 20) * side + ((e >> 16) & 15)) * c4 + (e & 0xFFFF);
+          const __nv_bfloat16* src =
+              live ? x + ((e >> 20) * side + ((e >> 16) & 15)) * c4 + (e & 0xFFFF) : x;
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-            cp_async16(a + a_off + i * 1024, pix[i] >= 0 ? src + (int64_t)pix[i] * c4 : x,
-                       pix[i] >= 0);
+          for (int i = 0; i < 8; ++i) {
+            const bool ok = live && pix[i] >= 0;
+            cp_async16(a + a_off + i * 1024, ok ? src + (int64_t)pix[i] * c4 : x, ok);
+          }
           cp_async_commit();
           if (pending >= 0) {  // the previous k-tile's copies: landed, fenced, announced
             cp_async_wait<1>();
@@ -355,6 +377,13 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
   // The consumer warpgroups: rows 64 MT g .. 64 MT (g + 1) - 1 of each tile.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
   const int g = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31, q = lane & 3;
+  // K2 (one column block, cp = 4Co / 4 channels a group): the lane's run of
+  // columns 32G + 8q .. + 7 is channels (32G + 8q) % cp of group
+  // (32G + 8q) / cp. At 4Co = BN = 128 or 256 (cp 32, 64) that is channels
+  // 32 (G % kSlots) + 8q of group G / kSlots: each lane pools whole runs
+  // alone. At BN = 64 (4Co 32 or 64, cp 8 or 16) every G gives the lane
+  // channels 8q % cp, and the lanes of its quad hold the other groups.
+  constexpr int kSlots = BN == 256 ? 2 : 1;
   union Pack {
     uint4 u;
     __nv_bfloat16 v[8];
@@ -402,6 +431,13 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
       const int64_t m = m0 + (g * MT + mt) * 64 + warp * 16 + (lane >> 2) + 8 * i;
       const Origin o = origin(n, m);
       const int64_t pos = ((int64_t)o.b * side + o.y + 1) * side + o.x + 1;
+      float pm[kSlots][8];  // K2: the max so far of each pooled channel's rounded values
+      if constexpr (POOL) {
+#pragma unroll
+        for (int sl = 0; sl < kSlots; ++sl)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) pm[sl][e] = 0.f;
+      }
 #pragma unroll
       for (int G = 0; G < BN / 32; ++G) {
         float v[8];
@@ -447,6 +483,39 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
 #pragma unroll
         for (int e = 0; e < 8; ++e) out.v[e] = __float2bfloat16(v[e]);
         *reinterpret_cast<uint4*>(cv.out + pos * co4 + col) = out.u;
+        if constexpr (POOL) {  // the pool takes the stored (rounded) values
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float r = __bfloat162float(out.v[e]);
+            pm[G % kSlots][e] = G < kSlots ? r : fmaxf(pm[G % kSlots][e], r);
+          }
+        }
+      }
+      if constexpr (POOL) {
+        const int cp = co4 / 4;
+        if constexpr (BN == 64) {  // the max over the quad's lanes with the same channels
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            pm[0][e] = fmaxf(pm[0][e], __shfl_xor_sync(0xffffffffu, pm[0][e], 2));
+            if (cp == 8) pm[0][e] = fmaxf(pm[0][e], __shfl_xor_sync(0xffffffffu, pm[0][e], 1));
+          }
+        }
+        if (m < M && 8 * q < cp) {
+          const int half = n / 2 + 2;
+          __nv_bfloat16* dst =
+              cv.pooled + 8 * q +
+              (cv.pool == kPoolPixel
+                   ? (((int64_t)o.b * n + o.y) * n + o.x) * cp
+                   : (((int64_t)o.b * half + o.y / 2 + 1) * half + o.x / 2 + 1) * co4 +
+                         (2 * (o.y & 1) + (o.x & 1)) * cp);
+#pragma unroll
+          for (int sl = 0; sl < kSlots; ++sl) {
+            Pack pk;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) pk.v[e] = __float2bfloat16(pm[sl][e]);
+            *reinterpret_cast<uint4*>(dst + 32 * sl) = pk.u;
+          }
+        }
       }
     }
   }
@@ -489,13 +558,14 @@ bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, int MT>
+template <int BN, int MT, bool POOL>
 cudaError_t launch_bn(const Params& prm, cudaStream_t stream) {
   // The ring, the plan (an int a kVec-deep run) and the 1 KB alignment.
   const int smem = kStages * (MT * kABytes + BN * kBK * 2) + prm.kt_total * (kBK / kVec) * 4 + 1024;
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   const cudaError_t attr =
-      cudaFuncSetAttribute(s2d_wgmma<BN, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(s2d_wgmma<BN, MT, POOL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
   if (attr != cudaSuccess) return attr;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -503,30 +573,40 @@ cudaError_t launch_bn(const Params& prm, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const int64_t rows = (int64_t)prm.conv.batch * prm.conv.n * prm.conv.n;
   const int64_t tiles = (rows + kBM * MT - 1) / (kBM * MT) * prm.geo.n_blocks;
-  s2d_wgmma<BN, MT><<<(unsigned)(tiles < sms ? tiles : sms), kThreadsWg, smem, stream>>>(prm);
+  s2d_wgmma<BN, MT, POOL><<<(unsigned)(tiles < sms ? tiles : sms), kThreadsWg, smem, stream>>>(
+      prm);
   return cudaGetLastError();
+}
+
+// The instantiation for the launch's tile and pool.
+template <int BN, int MT>
+cudaError_t launch_tile(const Params& prm, cudaStream_t stream) {
+  if (prm.conv.pool == kPoolNone) return launch_bn<BN, MT, false>(prm, stream);
+  if constexpr (BN == 64 || BN == 128 || BN == 256) return launch_bn<BN, MT, true>(prm, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-cudaError_t conv3x3(const Conv& cv, cudaStream_t stream) {
-  if (cv.batch <= 0 || cv.n <= 0 || cv.co4 <= 0 || cv.co4 % 8 != 0 || cv.n_ops < 1 ||
-      cv.n_ops > 2)
+cudaError_t conv(const Conv& cv, cudaStream_t stream) {
+  if (cv.batch <= 0 || !takes(cv.gather, cv.n, cv.c4, cv.n_ops, cv.co4, cv.pool))
     return cudaErrorInvalidValue;
   if (cv.epilogue != kRelu && cv.epilogue != kFilm && cv.epilogue != kNone)
     return cudaErrorInvalidValue;
-  if (cv.epilogue == kFilm && (cv.n_ops != 1 || cv.c4[0] != cv.co4)) return cudaErrorInvalidValue;
-  for (int o = 0; o < cv.n_ops; ++o)  // whole 16-byte runs; channels fit the plan's 16 bits
-    if (cv.c4[o] <= 0 || cv.c4[o] % 32 != 0 || cv.c4[o] > 0xFFFF) return cudaErrorInvalidValue;
+  if (cv.epilogue == kFilm &&
+      (cv.gather != kGatherConv3x3 || cv.n_ops != 1 || cv.c4[0] != cv.co4))
+    return cudaErrorInvalidValue;
+  if (cv.pool != kPoolNone && (cv.epilogue != kRelu || cv.pooled == nullptr))
+    return cudaErrorInvalidValue;
   Params prm{};
   prm.conv = cv;
-  prm.geo = geometry(cv.n, cv.c4, cv.n_ops, cv.co4);
-  prm.kt0 = 4 * cv.c4[0] / kBK;
-  prm.kt_total = prm.kt0 + (cv.n_ops > 1 ? 4 * cv.c4[1] / kBK : 0);
+  prm.geo = geometry(cv.gather, cv.n, cv.c4, cv.n_ops, cv.co4);
+  prm.kt0 = (depth(cv.gather, cv.c4[0]) + kBK - 1) / kBK;
+  prm.kt_total = prm.kt0 + (cv.n_ops > 1 ? (depth(cv.gather, cv.c4[1]) + kBK - 1) / kBK : 0);
   const cuuint64_t side = cv.n + 2;
   for (int o = 0; o < cv.n_ops; ++o) {
-    const cuuint64_t c4 = cv.c4[o];
-    const cuuint64_t w_dims[2] = {(cuuint64_t)cv.co4, 4 * c4};
+    const cuuint64_t c4 = cv.c4[o];  // B's rows past K and columns past 4Co read as zeros
+    const cuuint64_t w_dims[2] = {(cuuint64_t)cv.co4, (cuuint64_t)depth(cv.gather, cv.c4[o])};
     const cuuint64_t w_strides[1] = {(cuuint64_t)cv.co4 * 2};
     const cuuint32_t w_box[2] = {kBBox, kBK};
     if (!encode(&prm.b_map[o], cv.w[o], 2, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
@@ -539,13 +619,13 @@ cudaError_t conv3x3(const Conv& cv, cudaStream_t stream) {
     if (!encode(&prm.a_map[o], cv.x[o], 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B))
       return cudaErrorInvalidValue;
   }
-  if (prm.geo.bm == 2 * kBM) return prm.geo.bn == 64 ? launch_bn<64, 2>(prm, stream)
-                                                     : launch_bn<128, 2>(prm, stream);
+  if (prm.geo.bm == 2 * kBM) return prm.geo.bn == 64 ? launch_tile<64, 2>(prm, stream)
+                                                     : launch_tile<128, 2>(prm, stream);
   switch (prm.geo.bn) {
-    case 64: return launch_bn<64, 1>(prm, stream);
-    case 128: return launch_bn<128, 1>(prm, stream);
-    case 192: return launch_bn<192, 1>(prm, stream);
-    case 256: return launch_bn<256, 1>(prm, stream);
+    case 64: return launch_tile<64, 1>(prm, stream);
+    case 128: return launch_tile<128, 1>(prm, stream);
+    case 192: return launch_tile<192, 1>(prm, stream);
+    case 256: return launch_tile<256, 1>(prm, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -553,17 +633,21 @@ cudaError_t conv3x3(const Conv& cv, cudaStream_t stream) {
 }  // namespace wg
 }  // namespace depgan
 
-// The launch plan of a K1 (c4b = 0) or K3 launch as the kernel takes it:
-// out[0..7] = route, bm, bn, n_blocks, box[4]; then, for each run of GEMM depth
-// the producer loads in one piece (kHalf deep by TMA, kVec by cp.async), in
-// k order over operand 0 then 1, (operand, channel, dx, dy). Returns the
-// number of ints written, or -1 if they would not fit in cap.
-extern "C" int depgan_wgmma_plan(int n, int c4a, int c4b, int co4, int* out, int cap) {
+// The launch plan of a K1 or K2 (c4b = 0), K3, or K7 (gather 2) launch as
+// the kernel takes it: out[0..7] = route, bm, bn, n_blocks, box[4]; then, for
+// each run of GEMM depth the producer loads in one piece (kHalf deep by TMA,
+// kVec by cp.async), in k order over operand 0 then 1, up to each operand's K
+// rounded up to whole k-tiles, (operand, channel, dx, dy), or (operand, -1,
+// 0, 0) past K. gather and pool are the engine's Gather and PoolMode. Returns
+// the number of ints written, or -1 for widths the mainloop refuses (takes())
+// or if they would not fit in cap.
+extern "C" int depgan_wgmma_plan(int n, int c4a, int c4b, int co4, int gather, int pool, int* out,
+                                 int cap) {
   using namespace depgan::wg;
-  if (n <= 0 || c4a <= 0 || c4a % 32 != 0 || c4b < 0 || c4b % 32 != 0 || co4 <= 0) return -1;
   const int c4[2] = {c4a, c4b};
-  const int n_ops = c4b > 0 ? 2 : 1;
-  const Geometry g = geometry(n, c4, n_ops, co4);
+  const int n_ops = c4b != 0 ? 2 : 1;
+  if (!takes(gather, n, c4, n_ops, co4, pool)) return -1;
+  const Geometry g = geometry(gather, n, c4, n_ops, co4);
   const int run = g.route == kRouteTma ? kHalf : kVec;
   int w = 0;
   const int head[8] = {g.route, g.bm, g.bn, g.n_blocks, g.box[0], g.box[1], g.box[2], g.box[3]};
@@ -572,10 +656,13 @@ extern "C" int depgan_wgmma_plan(int n, int c4a, int c4b, int co4, int* out, int
     out[w++] = v;
   }
   for (int o = 0; o < n_ops; ++o) {
-    for (int k0 = 0; k0 < 4 * c4[o]; k0 += run) {
+    const int k = (depth(gather, c4[o]) + kBK - 1) / kBK * kBK;
+    for (int k0 = 0; k0 < k; k0 += run) {
       if (w + 4 > cap) return -1;
-      const Chunk ck = chunk(c4[o], k0);
-      out[w++] = o, out[w++] = ck.c, out[w++] = ck.dx, out[w++] = ck.dy;
+      const int e = plan_entry(gather, c4[o], k0);  // decoded as the producer decodes it
+      const bool past = e == kPast;
+      out[w++] = o, out[w++] = past ? -1 : e & 0xFFFF, out[w++] = past ? 0 : (e >> 16) & 15;
+      out[w++] = past ? 0 : e >> 20;
     }
   }
   return w;

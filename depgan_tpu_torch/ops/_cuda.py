@@ -61,9 +61,11 @@ _SIGNATURES = {
     "depgan_s2d_gemm_probe": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # kind, x, out, rows, m, c_bytes, stream
     "depgan_deint": [_I, _P, _P, ctypes.c_longlong, _I, _I, _P],
-    # dtype, x1, x2, w1, w2, bias, gamma, beta, out, batch, n, c4a, c4b, co4,
-    # epilogue, stream
-    "depgan_conv3x3_s2d_engine": [_I] + [_P] * 8 + [_I] * 6 + [_P],
+    # dtype, x1, x2, w1, w2, bias, gamma, beta, out, pooled, batch, n, c4a,
+    # c4b, co4, epilogue, pool, stream
+    "depgan_conv3x3_s2d_engine": [_I] + [_P] * 9 + [_I] * 7 + [_P],
+    # dtype, x, w9, bias, out, batch, n, c4, co4, epilogue, stream
+    "depgan_conv5x5_s2d_engine": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -102,8 +104,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.depgan_cuda_error_string.argtypes = [_I]
     lib.depgan_cuda_error_string.restype = ctypes.c_char_p
-    # n, c4a, c4b, co4, out, cap -> ints written (a query, no launch)
-    lib.depgan_wgmma_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I]
+    # n, c4a, c4b, co4, gather, pool, out, cap -> ints written (a query, no launch)
+    lib.depgan_wgmma_plan.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_int), _I]
     lib.depgan_wgmma_plan.restype = ctypes.c_int
     return lib
 

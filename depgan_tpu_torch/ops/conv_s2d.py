@@ -46,6 +46,7 @@ from .s2d_conv import (
     flip_transpose_w5,
     s2d_unshifted,
 )
+from .wgmma_plan import POOL_WIDTHS
 
 _EPILOGUES = {"relu": 0, "film": 1, "none": 2}
 _POOLS = {"pixel": 1, "s2d": 2}
@@ -356,7 +357,8 @@ def conv3x3_s2d_fused_pool(x_padded, w4, bias4, pool="s2d"):
     output (serving only: no gradient, as in JAX). Returns (out, pooled):
     pooled is the next level's padded s2d (B, N/2+2, N/2+2, 4Co) for
     ``pool='s2d'`` or the pixel-domain pool (B, N, N, Co) for ``'pixel'``.
-    The kernel takes 4Co <= 256."""
+    The kernel takes 4Co <= 256 in float32 (the engine) and 4Co of 32, 64,
+    128 or 256 in bfloat16 (the wgmma mainloop's pool in registers)."""
     b, n, c4 = _check_plane("conv3x3_s2d_fused_pool", x_padded)
     co4 = w4.shape[-1]
     _check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
@@ -366,6 +368,8 @@ def conv3x3_s2d_fused_pool(x_padded, w4, bias4, pool="s2d"):
     if not _on_cuda(x_padded, w4, bias4):
         return conv3x3_s2d_fused_pool_plain(x_padded, w4, bias4, pool)
     _require(co4 <= 256, "the fused pool kernel takes at most 256 output channels")
+    _require(x_padded.dtype != torch.bfloat16 or co4 in POOL_WIDTHS,
+             f"the fused pool kernel takes 4Co {POOL_WIDTHS} in bfloat16, got {co4}")
     _check_kernel_widths(co4, c4)
     dev, dt = x_padded.device, x_padded.dtype
     out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)

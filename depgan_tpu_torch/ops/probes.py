@@ -16,9 +16,10 @@ with their plain PyTorch versions.
   (``reshape_idx``) or as the flat copy it is on a row-major layout
   (``merge``).
 
-``conv3x3_engine`` launches the GEMM engine's K1 or K3, which the wrappers
-no longer call in bfloat16: the reference that the wgmma mainloop, the
-chains and P1, P2 equal bit for bit.
+``conv3x3_engine`` launches the GEMM engine's K1, K2 or K3 and
+``conv5x5_engine`` its K7, which the wrappers no longer call in bfloat16:
+the references that the wgmma mainloop, the chains and P1, P2 equal bit for
+bit.
 
 As in ``conv_s2d``: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel and counts the launch in ``conv_s2d.SHAPES`` under the
@@ -106,20 +107,24 @@ def kernel_anatomy(phase, x_padded, w4, bias4, reps=1, a_dense=None):
 
 
 def conv3x3_engine(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu", x2_padded=None,
-                   w4_2=None):
-    """The GEMM engine's K1 (``mode`` relu, film or none) or, with
-    ``x2_padded`` and ``w4_2``, its K3 (relu), on a CUDA tensor in either
-    dtype: what ``conv_s2d``'s wrappers launched in bfloat16 before the wgmma
-    mainloop took K1 and K3 over, and what the chains (K10, K12) and P1, P2
-    sum like. A reference for ``chip_smoke.py`` and the card's tests: no
-    path calls it, and it counts no launch. Arguments as
-    ``conv_s2d._conv3x3_s2d_impl`` and ``_conv2_impl``."""
+                   w4_2=None, pool=None):
+    """The GEMM engine's K1 (``mode`` relu, film or none), with ``pool``
+    ('s2d' or 'pixel', relu) its K2, or with ``x2_padded`` and ``w4_2`` its
+    K3 (relu), on a CUDA tensor in either dtype: what ``conv_s2d``'s
+    wrappers launched in bfloat16 before the wgmma mainloop took them over,
+    and what the chains (K10, K12) and P1, P2 sum like. A reference for
+    ``chip_smoke.py`` and the card's tests: no path calls it, and it counts
+    no launch. Arguments as ``conv_s2d._conv3x3_s2d_impl``,
+    ``conv3x3_s2d_fused_pool`` and ``_conv2_impl``; returns (out, pooled)
+    with a pool, else out."""
     b, n, c4 = K._check_plane("conv3x3_engine", x_padded)
     co4 = w4.shape[-1]
     K._check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
     K._check_f32("bias4", bias4, (co4,))
     two = x2_padded is not None
     K._require(mode in K._EPILOGUES and (not two or mode == "relu"), f"bad mode {mode!r}")
+    K._require(pool is None or (pool in K._POOLS and mode == "relu" and not two
+                                and (pool != "s2d" or n % 2 == 0)), f"bad pool {pool!r}")
     c4b = x2_padded.shape[-1] if two else 0
     if two:
         K._require(tuple(x2_padded.shape[:3]) == tuple(x_padded.shape[:3]),
@@ -134,17 +139,47 @@ def conv3x3_engine(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu", x2
     if not K._on_cuda(x_padded, w4, bias4, *extra):
         if two:
             return K.conv3x3_s2d_fused2_plain(x_padded, x2_padded, w4, w4_2, bias4)
+        if pool is not None:
+            return K.conv3x3_s2d_fused_pool_plain(x_padded, w4, bias4, pool)
         return K.conv3x3_s2d_fused_plain(x_padded, w4, bias4, gamma4, beta4, mode)
     K._check_kernel_widths(co4, c4, *((c4b,) if two else ()))
     dev, dt = x_padded.device, x_padded.dtype
     out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    pooled = None
+    if pool == "s2d":
+        pooled = torch.empty((b, n // 2 + 2, n // 2 + 2, co4), dtype=dt, device=dev)
+    elif pool == "pixel":
+        pooled = torch.empty((b, n, n, co4 // 4), dtype=dt, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         _cuda.check(_cuda.library().depgan_conv3x3_s2d_engine(
             _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), ptr(x2_padded), w4.data_ptr(),
             ptr(w4_2), bias4.data_ptr(), ptr(gamma4 if film else None),
-            ptr(beta4 if film else None), out.data_ptr(), b, n, c4, c4b, co4,
-            K._EPILOGUES[mode], _cuda.stream(dev)), "conv3x3_engine")
+            ptr(beta4 if film else None), out.data_ptr(), ptr(pooled), b, n, c4, c4b, co4,
+            K._EPILOGUES[mode], K._POOLS.get(pool, 0), _cuda.stream(dev)), "conv3x3_engine")
+    return out if pool is None else (out, pooled)
+
+
+def conv5x5_engine(x_padded, w9, bias4, mode="relu"):
+    """The GEMM engine's K7 on a CUDA tensor in either dtype: what
+    ``conv_s2d._conv5_impl`` launched in bfloat16 before the wgmma mainloop
+    took it over. A reference for ``chip_smoke.py`` and the card's tests: no
+    path calls it, and it counts no launch. Arguments as ``_conv5_impl``."""
+    b, n, c4 = K._check_plane("conv5x5_engine", x_padded)
+    co4 = w9.shape[-1]
+    K._check_weight("w9", w9, (3, 3, c4, co4), x_padded.dtype)
+    K._check_f32("bias4", bias4, (co4,))
+    K._require(mode in ("relu", "none"), f"bad mode {mode!r}")
+    if not K._on_cuda(x_padded, w9, bias4):
+        return K.conv5x5_s2d_fused_plain(x_padded, w9, bias4, mode)
+    K._check_kernel_widths(co4, c4, run=8)
+    dev, dt = x_padded.device, x_padded.dtype
+    out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.check(_cuda.library().depgan_conv5x5_s2d_engine(
+            _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(),
+            out.data_ptr(), b, n, c4, co4, K._EPILOGUES[mode], _cuda.stream(dev)),
+            "conv5x5_engine")
     return out
 
 

@@ -1,8 +1,8 @@
 """What ptxas allocated for the GEMM engine's kernels: registers, stack
 frame and spill bytes of every ``s2d_gemm`` instantiation (dtype, N tile,
 phase), from ``nvcc -Xptxas -v``; ``wgmma_figures`` reads the same for the
-wgmma mainloop of K1 and K3 (``s2d_wgmma``: N tile, m64 tiles a consumer
-warpgroup).
+wgmma mainloop of K1, K2, K3 and K7 (``s2d_wgmma``: N tile, m64 tiles a
+consumer warpgroup, K2's pooled epilogue or not).
 
 With no argument it reads the report kept beside the port's built library
 (``ops/_cuda.py``). Given source directories (another checkout's
@@ -22,7 +22,7 @@ import sys
 from pathlib import Path
 
 _NAME = re.compile(r"8s2d_gemmI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?E")
-_WGMMA = re.compile(r"9s2d_wgmmaILi(\d+)ELi(\d+)EE")
+_WGMMA = re.compile(r"9s2d_wgmmaILi(\d+)ELi(\d+)ELb([01])EE")
 PHASE_NAMES = {0: "production", 1: "probe full", 2: "probe no_epi", 3: "probe matmul_only",
                4: "probe stage_only"}
 
@@ -41,14 +41,15 @@ def engine_figures(log: str) -> dict[tuple, dict[str, int]]:
 
 
 def wgmma_figures(log: str) -> dict[tuple, dict[str, int]]:
-    """(N tile, m64 tiles a consumer warpgroup) -> registers, stack, spill
-    stores and loads of each ``s2d_wgmma`` kernel in a ptxas ``-v`` report."""
+    """(N tile, m64 tiles a consumer warpgroup, pooled) -> registers, stack,
+    spill stores and loads of each ``s2d_wgmma`` kernel in a ptxas ``-v``
+    report."""
     from depgan_tpu_torch.ops._cuda import ptxas_figures
 
     rows = {}
     for name, fig in ptxas_figures(log).items():
         if m := _WGMMA.search(name):
-            rows[int(m.group(1)), int(m.group(2))] = fig
+            rows[int(m.group(1)), int(m.group(2)), m.group(3) == "1"] = fig
     return dict(sorted(rows.items()))
 
 

@@ -145,6 +145,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="at most 256"):
         K.conv3x3_s2d_fused_pool(x, torch.zeros(2, 2, 128, 512, device=cuda),
                                  torch.zeros(512, device=cuda))
+    with pytest.raises(ValueError, match="in bfloat16"):
+        K.conv3x3_s2d_fused_pool(x.bfloat16(), torch.zeros(2, 2, 128, 96, device=cuda).bfloat16(),
+                                 torch.zeros(96, device=cuda))
 
 
 @pytest.mark.gpu
@@ -708,9 +711,10 @@ def test_deint_kernels_equal_plain(cuda, dtype):
         probes.conv3x3_rowblk(*_anatomy_inputs(torch.float32, cuda, n=10, c4=32, co4=32), 5)
 
 
-# The bf16 wgmma mainloop (bf16 K1 without a pool, K3) at the 4C -> 4Co
-# widths of the serving forward and of the superstep's transposes, at small
-# n: 8 (a 256-row tile spans four images), 12 (the cp.async route) and 16.
+# The bf16 wgmma mainloop (K1, K2, K3, K7) at the 4C -> 4Co widths of the
+# serving forward and of the superstep's transposes, at small n: 8 (a
+# 256-row tile spans four images), 12 (the cp.async route) and 16. K2 also
+# at the generator's widths at first_fm 8 (4Co 32, 64: the quad's shuffles).
 WGMMA_WIDTHS = {
     "relu 32->128": ((32,), 128, "relu"), "relu 128->128": ((128,), 128, "relu"),
     "film 128": ((128,), 128, "film"), "relu 128->256": ((128,), 256, "relu"),
@@ -720,14 +724,25 @@ WGMMA_WIDTHS = {
     "none 256->384": ((256,), 384, "none"),
     "fused2 384+256->256": ((384, 256), 256, "relu"),
     "fused2 256+128->128": ((256, 128), 128, "relu"),
+    "pool s2d 128->128": ((128,), 128, "s2d"), "pool pixel 256->256": ((256,), 256, "pixel"),
+    "pool s2d 32->32": ((32,), 32, "s2d"), "pool pixel 64->64": ((64,), 64, "pixel"),
+    "conv5 relu 16->64": ((16,), 64, "conv5 relu"), "conv5 relu 64->64": ((64,), 64, "conv5 relu"),
+    "conv5 relu 64->128": ((64,), 128, "conv5 relu"),
+    "conv5 relu 128->128": ((128,), 128, "conv5 relu"),
+    "conv5 none 64->16": ((64,), 16, "conv5 none"), "conv5 none 64->64": ((64,), 64, "conv5 none"),
+    "conv5 none 128->64": ((128,), 64, "conv5 none"),
+    "conv5 none 128->128": ((128,), 128, "conv5 none"),
 }
+POOLED = ("s2d", "pixel")
 
 
 def _wgmma_inputs(c4s, co4, mode, n, device, b=3, seed=5):
     g = torch.Generator(device=device).manual_seed(seed)
+    taps = 9 if mode.startswith("conv5") else 4
+    side = 3 if taps == 9 else 2
     xs = [K.pad_s2d(torch.randn(b, n, n, c4, generator=g, device=device)).bfloat16() for c4 in c4s]
-    ws = [(torch.randn(2, 2, c4, co4, generator=g, device=device) * (4 * sum(c4s)) ** -0.5)
-          .bfloat16() for c4 in c4s]
+    ws = [(torch.randn(side, side, c4, co4, generator=g, device=device)
+           * (taps * sum(c4s)) ** -0.5).bfloat16() for c4 in c4s]
     bias = torch.randn(co4, generator=g, device=device) * 0.1
     film = ()
     if mode == "film":
@@ -736,34 +751,61 @@ def _wgmma_inputs(c4s, co4, mode, n, device, b=3, seed=5):
     return xs, ws, bias, film
 
 
+def _wgmma_calls(c4s, mode, xs, ws, bias, film):
+    """(launch counter name, kernel call, plain call, engine call, plan
+    keywords) of one WGMMA_WIDTHS case."""
+    if len(c4s) == 2:
+        args = (xs[0], xs[1], ws[0], ws[1], bias)
+        return ("conv3x3_s2d_fused2", lambda: K._conv2_impl(*args),
+                lambda: K.conv3x3_s2d_fused2_plain(*args),
+                lambda: probes.conv3x3_engine(xs[0], ws[0], bias, x2_padded=xs[1], w4_2=ws[1]),
+                {})
+    args = (xs[0], ws[0], bias)
+    if mode in POOLED:
+        return ("conv3x3_s2d_fused_pool", lambda: K.conv3x3_s2d_fused_pool(*args, pool=mode),
+                lambda: K.conv3x3_s2d_fused_pool_plain(*args, pool=mode),
+                lambda: probes.conv3x3_engine(*args, pool=mode), {"pool": mode})
+    if mode.startswith("conv5"):
+        m = mode.split()[1]
+        return ("conv5x5_s2d_fused", lambda: K._conv5_impl(*args, mode=m),
+                lambda: K.conv5x5_s2d_fused_plain(*args, mode=m),
+                lambda: probes.conv5x5_engine(*args, mode=m), {"gather": "conv5x5"})
+    name = "conv3x3_s2d_fused[none]" if mode == "none" else "conv3x3_s2d_fused"
+    return (name, lambda: K._conv3x3_s2d_impl(*args, *film, mode=mode),
+            lambda: K.conv3x3_s2d_fused_plain(*args, *film, mode=mode),
+            lambda: probes.conv3x3_engine(*args, *film, mode=mode), {})
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(WGMMA_WIDTHS))
 def test_wgmma_matches_plain_and_engine(cuda, case):
     """The wgmma mainloop against the plain version (bf16 tolerances, rings
-    exactly zero) and against the engine's kernel on the same inputs, bit
-    for bit: both sum each output in 16-deep steps in k order."""
+    exactly zero on outputs whose memory held NaNs) and against the engine's
+    kernel on the same inputs, bit for bit (K2 both its outputs): both sum
+    each output in 16-deep steps in k order."""
     c4s, co4, mode = WGMMA_WIDTHS[case]
-    two = len(c4s) == 2
-    name = ("conv3x3_s2d_fused2" if two else
-            "conv3x3_s2d_fused[none]" if mode == "none" else "conv3x3_s2d_fused")
     for n in (8, 12, 16):
         xs, ws, bias, film = _wgmma_inputs(c4s, co4, mode, n, cuda)
+        name, kernel, plain, engine, kind = _wgmma_calls(c4s, mode, xs, ws, bias, film)
+        ref = plain()
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        poison = [torch.full(r.shape, float("nan"), dtype=r.dtype, device=cuda) for r in refs]
+        del poison  # the kernel's outputs likely reuse this NaN-filled memory
         before = K.launches()[name]
-        if two:
-            out = K._conv2_impl(xs[0], xs[1], ws[0], ws[1], bias)
-            ref = K.conv3x3_s2d_fused2_plain(xs[0], xs[1], ws[0], ws[1], bias)
-            engine = probes.conv3x3_engine(xs[0], ws[0], bias, x2_padded=xs[1], w4_2=ws[1])
-        else:
-            out = K._conv3x3_s2d_impl(xs[0], ws[0], bias, *film, mode=mode)
-            ref = K.conv3x3_s2d_fused_plain(xs[0], ws[0], bias, *film, mode=mode)
-            engine = probes.conv3x3_engine(xs[0], ws[0], bias, *film, mode=mode)
+        out = kernel()
         torch.cuda.synchronize()
         assert K.launches()[name] == before + 1
-        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
-        assert _ring_zero(out)
-        diff = float((out.float() - engine.float()).abs().max())
-        print(f"{case} n {n} ({wgmma_plan.plan(n, c4s, co4).route}): max abs {diff:.3e} "
-              f"from the engine")
+        outs = out if isinstance(out, tuple) else (out,)
+        eng = engine()
+        engs = eng if isinstance(eng, tuple) else (eng,)
+        diff = 0.0
+        for j, (o, r, e) in enumerate(zip(outs, refs, engs)):
+            torch.testing.assert_close(o.float(), r.float(), atol=1e-2, rtol=1e-2)
+            if j == 0 or mode == "s2d":  # a padded plane
+                assert _ring_zero(o)
+            diff = max(diff, float((o.float() - e.float()).abs().max()))
+        route = wgmma_plan.plan(n, c4s, co4, **kind).route
+        print(f"{case} n {n} ({route}): max abs {diff:.3e} from the engine")
         assert diff == 0.0
 
 
@@ -771,7 +813,9 @@ def test_wgmma_matches_plain_and_engine(cuda, case):
 def test_wgmma_library_plan_matches_python(cuda):
     """The library's own load plan equals ``ops/wgmma_plan.py`` at every
     width and at the production sides."""
-    for c4s, co4, _ in WGMMA_WIDTHS.values():
+    for c4s, co4, mode in WGMMA_WIDTHS.values():
+        kind = ({"pool": mode} if mode in POOLED else
+                {"gather": "conv5x5"} if mode.startswith("conv5") else {})
         for n in (8, 12, 16, 64, 128):
-            assert wgmma_plan.library_plan(n, c4s, co4) == wgmma_plan.as_ints(
-                wgmma_plan.plan(n, c4s, co4))
+            assert wgmma_plan.library_plan(n, c4s, co4, **kind) == wgmma_plan.as_ints(
+                wgmma_plan.plan(n, c4s, co4, **kind))
