@@ -7,10 +7,12 @@
    and the build of the CUDA kernels in ``depgan_tpu_torch/csrc/``, with
    the registers, stack frame and spill bytes that ptxas gave every
    instantiation of the GEMM engine (``s2d_gemm``), the production ones
-   held to ENGINE_FIGURES, and of the bf16 wgmma mainloop of K1, K2, K3
-   and K7 (``s2d_wgmma``), held to WGMMA_FIGURES; and the library's own
-   A-load plan of every K1, K2, K3 and K7 shape, with the route it takes
-   (TMA boxes or cp.async), held to ``ops/wgmma_plan.py``.
+   held to ENGINE_FIGURES, and of the bf16 wgmma mainloop of K1, K2, K3,
+   K7 and P1's phases (``s2d_wgmma``) and of P2's window kernel on it
+   (``rowblk_wgmma``), held to WGMMA_FIGURES; the library's own A-load
+   plan of every K1, K2, K3 and K7 shape, with the route it takes (TMA
+   boxes or cp.async), and P2's window at its shapes, held to
+   ``ops/wgmma_plan.py``.
 2. Kernels: each kernel against its plain PyTorch version at every shape of
    the serving forward and the training superstep (256x256 slices,
    first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
@@ -26,7 +28,8 @@
    same inputs; the probes: P1's four phases at a check shape (``full`` and
    ``matmul_only`` equal to K1 bit for bit, ``stage_only``'s sums within
    1e-5 of their absolute sum), P2 at the level-1/2 shapes with each block
-   count (bfloat16, equal to K1 bit for bit), P3 equal to its plain version.
+   count (bfloat16, equal to K1 bit for bit), P3 equal to its plain version;
+   bf16 P1 and P2 run the wgmma mainloop.
    In bfloat16, K1, K2 (both outputs), K3 and K7, which run the wgmma
    mainloop, equal the engine's kernel on the same inputs bit for bit.
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
@@ -92,7 +95,9 @@
 10. Probes, for information: each probe's ``main`` at the JAX scripts'
    default shapes (``depgan_tpu_torch/scripts``: P1 and P2 at batch 64, P3
    at batch 256), with their launch counts, and each probe kernel timed
-   against its plain version, the library call and its bound.
+   against its plain version, the library call and its bound; bf16 P1 and
+   P2 in turns with their routes before the mainloop (old, new, new, old:
+   the engine's phases, ``window_conv``).
 
 Every phase prints its seconds. ``CONV5_PACKED`` is restored in a
 ``finally`` after each phase that sets it. Prints one JSON line with the
@@ -189,11 +194,11 @@ KERNELS = {
     "conv3x3_s2d_chain3": (CHAIN_SRC, f"{PALLAS}:1741"),
     "conv3x3_s2d_chain2": (CHAIN_SRC, f"{PALLAS}:1511"),
     "conv5x5_s2d_fused[packed]": (WINDOW_SRC, f"{PALLAS}:1940"),
-    "kernel_anatomy[full]": (PROBE_SRC, "scripts/kernel_anatomy.py:80"),
-    "kernel_anatomy[no_epi]": (PROBE_SRC, "scripts/kernel_anatomy.py:80"),
-    "kernel_anatomy[matmul_only]": (PROBE_SRC, "scripts/kernel_anatomy.py:90"),
-    "kernel_anatomy[stage_only]": (PROBE_SRC, "scripts/kernel_anatomy.py:97"),
-    "conv3x3_rowblk": (WINDOW_SRC, "scripts/rowblk_probe.py:125"),
+    "kernel_anatomy[full]": (WGMMA_SRC, "scripts/kernel_anatomy.py:80"),
+    "kernel_anatomy[no_epi]": (WGMMA_SRC, "scripts/kernel_anatomy.py:80"),
+    "kernel_anatomy[matmul_only]": (WGMMA_SRC, "scripts/kernel_anatomy.py:90"),
+    "kernel_anatomy[stage_only]": (WGMMA_SRC, "scripts/kernel_anatomy.py:97"),
+    "conv3x3_rowblk": (WGMMA_SRC, "scripts/rowblk_probe.py:125"),
     "deint_reshape_idx": (PROBE_SRC, "scripts/packed_tap_probe.py:92"),
     "deint_merge": (PROBE_SRC, "scripts/packed_tap_probe.py:101"),
 }
@@ -210,15 +215,25 @@ ENGINE_FIGURES = {
     ("float32", 128): (128, 24, 48, 72), ("float32", 256): (122, 0, 0, 0),
 }  # registers, stack frame bytes, spill store bytes, spill load bytes
 # What ptxas gives the wgmma mainloop's instantiations (N tile, m64 tiles a
-# consumer warpgroup, K2's pooled epilogue): 168 registers a thread at
-# launch (384 threads, one block an SM; setmaxnreg then gives the consumers
-# 224 and the producer 56), no stack frame and no spills. K7's 5x5 gather is
-# a runtime case of the unpooled six (K7 runs (64, 1), (64, 2) and (128, 2));
-# K2 runs the pooled (128, 2) and (256, 1) at its production shapes and
-# (64, 1 or 2) at 4Co 32 or 64.
-WGMMA_FIGURES = {(bn, mt, pool): (168, 0, 0, 0)
-                 for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))
-                 for pool in (False, True) if not (pool and bn == 192)}
+# consumer warpgroup, K2's pooled epilogue, phase: 0 production, 1-4 P1's
+# full, no_epi, matmul_only, stage_only) and P2's window kernel (N tile, m64
+# tiles, pool None), keys of ``engine_registers.wgmma_name``: 168 registers
+# a thread at launch (384 threads, one block an SM; setmaxnreg then gives
+# the consumers 224 and the producer 56), no stack frame and no spills.
+# K7's 5x5 gather is a runtime case of the unpooled six (K7 runs (64, 1),
+# (64, 2) and (128, 2)); K2 runs the pooled (128, 2) and (256, 1) at its
+# production shapes and (64, 1 or 2) at 4Co 32 or 64. P1 takes 4Co <= 128;
+# P2 runs (128, 2) at level 1 and (256, 1) at level 2 (MT 1 at BN <= 128
+# where six slots do not fit).
+WGMMA_FIGURES = {
+    **{(bn, mt, pool, 0): (168, 0, 0, 0)
+       for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))
+       for pool in (False, True) if not (pool and bn == 192)},
+    **{(bn, mt, False, phase): (168, 0, 0, 0)
+       for bn in (64, 128) for mt in (1, 2) for phase in (1, 2, 3, 4)},
+    **{(bn, mt, None, 0): (168, 0, 0, 0)
+       for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))},
+}
 WGMMA_KERNELS = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
                  "conv3x3_s2d_fused2", "conv5x5_s2d_fused")
 L2_BYTES = 50 * 2 ** 20  # the H100's L2: timed launches rotate over inputs twice its size
@@ -372,7 +387,8 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
                    for p in planes)
 
     # K1, K2, K3 and K7 also carry the engine's kernel on the same inputs
-    # (``engine``): what they launched in bfloat16 before the wgmma mainloop.
+    # (``engine``): what they launched in bfloat16 before the wgmma mainloop;
+    # bf16 P1 and P2 their routes before it (``old``), timed, not compared.
 
     case = {"padded": (True,), "flops": 0.0, "peak": PEAK_FLOPS, "library": None}
     if name in ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool"):
@@ -545,9 +561,13 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         if name == "conv3x3_rowblk":
             case["kernel"] = lambda: P.conv3x3_rowblk(x, w4, bias4, arg)
             case["plain"] = lambda: P.conv3x3_rowblk_plain(x, w4, bias4, arg)
+            old = lambda: P.conv3x3_rowblk_window(x, w4, bias4, arg)  # noqa: E731
         else:
             case["kernel"] = lambda: P.kernel_anatomy(phase, x, w4, bias4, arg, a)
             case["plain"] = lambda: P.kernel_anatomy_plain(phase, x, w4, bias4, a)
+            old = lambda: P.kernel_anatomy_engine(phase, x, w4, bias4, arg, a)  # noqa: E731
+        if dtype == torch.bfloat16:  # the route before the mainloop, timed in turns with it
+            case["old"] = old
         if phase in ("full", "matmul_only"):  # K1's function, summed in K1's order
             case["k1"] = lambda: K._conv3x3_s2d_impl(x, w4, bias4)
         out_bytes = b * (n + 2) ** 2 * co4 * x.element_size()
@@ -754,7 +774,8 @@ def time_case(name: str, problem: tuple, dtype, seed: int) -> dict:
     before. The plain version, no yardstick of speed, runs on one copy. K1,
     K2, K3 and K7 also time the engine's kernel on the same copies, in turns
     with the wgmma mainloop (engine, kernel, kernel, engine): ``ms`` and
-    ``engine_ms`` are the faster of each pair, ``turns_ms`` all four."""
+    ``engine_ms`` are the faster of each pair, ``turns_ms`` all four; bf16
+    P1 and P2 so their old routes (``old_ms``)."""
     from depgan_tpu_torch.utils.profiling import cuda_graph_ms
 
     first = make_case(name, problem, dtype, seed)
@@ -767,9 +788,11 @@ def time_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         return cuda_graph_ms(lambda: [fn() for fn in fns], rounds) / copies
 
     t = {}
-    if "engine" in first:
-        turns = [cold_ms(key) for key in ("engine", "kernel", "kernel", "engine")]
-        t.update(ms=min(turns[1:3]), engine_ms=min(turns[0], turns[3]), turns_ms=turns)
+    ref = next((key for key in ("engine", "old") if key in first), None)
+    if ref:
+        turns = [cold_ms(key) for key in (ref, "kernel", "kernel", ref)]
+        t.update({"ms": min(turns[1:3]), f"{ref}_ms": min(turns[0], turns[3]),
+                  "turns_ms": turns})
     else:
         t["ms"] = cold_ms("kernel")
     t["plain_ms"] = cuda_graph_ms(first["plain"], 3)
@@ -788,23 +811,24 @@ def replay(shapes: dict, dtype, what: str) -> dict[str, dict]:
     """Times every (kernel, problem) of a run with its count of launches
     and sums them by kernel: ms, plain ms, library ms (null where a launch
     has no library call), bound ms and, for the wgmma kernels, the engine's
-    ms of that run's kernel launches. Each shape's times are kept in
-    SHAPE_TIMES."""
+    ms of that run's kernel launches (bf16 P1, P2: their old routes' ms).
+    Each shape's times are kept in SHAPE_TIMES."""
     totals: dict[str, dict] = {}
     for i, ((name, problem), count) in enumerate(sorted(shapes.items(), key=str)):
         t = SHAPE_TIMES[name, problem] = time_case(name, problem, dtype, seed=100 + i)
         lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         engine = ""
-        if "engine_ms" in t:
-            engine = (f", engine {t['engine_ms']:.4f} ms (turns engine, kernel, kernel, engine: "
-                      f"{', '.join(f'{v:.4f}' for v in t['turns_ms'])})")
+        for ref in ("engine", "old"):
+            if f"{ref}_ms" in t:
+                engine = (f", {ref} {t[f'{ref}_ms']:.4f} ms (turns {ref}, kernel, kernel, {ref}: "
+                          f"{', '.join(f'{v:.4f}' for v in t['turns_ms'])})")
         print(f"time {what} {name} {problem} x{count}: kernel {t['ms']:.4f} ms{engine}, plain "
               f"{t['plain_ms']:.4f} ms, library {lib} ms, bound {t['bound_ms']:.4f} ms "
               f"(bytes {t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), "
               f"{t['copies']} input copies rotated")
         tot = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                        "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
-        for key in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms", "engine_ms"):
+        for key in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms", "engine_ms", "old_ms"):
             if key in t:
                 tot[key] = tot.get(key, 0.0) + count * t[key]
         tot["library_ms"] = (None if tot["library_ms"] is None or t["library_ms"] is None
@@ -1559,12 +1583,13 @@ def profile_once(fn, what: str, unprofiled_ms: float) -> None:
 
 def check_engine_build(_cuda) -> None:
     """Phase 1's build check: what ptxas gave every instantiation of the
-    engine (``s2d_gemm``), of the wgmma mainloop (``s2d_wgmma``) and of the
-    window kernels, from the report kept beside the library; the production
-    engine held to ENGINE_FIGURES and the mainloop to WGMMA_FIGURES. Then
-    the library's own load plan of every K1, K2, K3 and K7 shape of the
-    serving forward and the superstep, held to ``ops/wgmma_plan.py``, with
-    the A-load route each takes."""
+    engine (``s2d_gemm``), of the wgmma mainloop (``s2d_wgmma``, P2's
+    ``rowblk_wgmma``) and of the window kernels, from the report kept beside
+    the library; the production engine held to ENGINE_FIGURES and the
+    mainloop to WGMMA_FIGURES. Then the library's own load plan of every K1,
+    K2, K3 and K7 shape of the serving forward and the superstep, with the
+    A-load route each takes, and P2's window at its shapes, held to
+    ``ops/wgmma_plan.py``."""
     from depgan_tpu_torch.ops import wgmma_plan
     from depgan_tpu_torch.scripts import engine_registers
 
@@ -1573,10 +1598,9 @@ def check_engine_build(_cuda) -> None:
     for line in engine_registers.format_rows(rows):
         print(f"build: {line}")
     wgmma = engine_registers.wgmma_figures(log)
-    for (bn, mt, pool), f in wgmma.items():
-        print(f"build: s2d_wgmma<{bn}, {mt}, {str(pool).lower()}>: {f.get('registers')} "
-              f"registers, {f.get('stack')} bytes stack frame, {f.get('spill_stores')} / "
-              f"{f.get('spill_loads')} bytes spill stores / loads")
+    for name, f in wgmma.items():
+        print(f"build: {name}: {f.get('registers')} registers, {f.get('stack')} bytes stack "
+              f"frame, {f.get('spill_stores')} / {f.get('spill_loads')} bytes spill stores / loads")
     for name, fig in _cuda.ptxas_figures(log).items():
         if "window_conv" in name:
             print(f"build: {name}: {fig.get('registers')} registers, {fig.get('stack')} bytes "
@@ -1589,8 +1613,9 @@ def check_engine_build(_cuda) -> None:
           f"the engine's production instantiations read {production}, expected {ENGINE_FIGURES}")
     mainloop = {key: (f.get("registers"), f.get("stack"), f.get("spill_stores"),
                       f.get("spill_loads")) for key, f in wgmma.items()}
-    check(mainloop == WGMMA_FIGURES,
-          f"the wgmma mainloop's instantiations read {mainloop}, expected {WGMMA_FIGURES}")
+    expected = {engine_registers.wgmma_name(*key): f for key, f in WGMMA_FIGURES.items()}
+    check(mainloop == expected,
+          f"the wgmma mainloop's instantiations read {mainloop}, expected {expected}")
     for name, label, problem in SERVING_CASES + TRAINING_CASES:
         if name not in WGMMA_KERNELS:
             continue
@@ -1610,6 +1635,14 @@ def check_engine_build(_cuda) -> None:
               f"{name} {label}: the library's wgmma plan differs from ops/wgmma_plan.py")
         print(f"build: wgmma plan {name} [{label}]: route {plan.route}, tile {plan.bm} x "
               f"{plan.bn}, {plan.n_blocks} column block(s), A box {plan.box}")
+    for n, c4, co4 in sorted({problem[:3] for name, _, problem in PROBE_CASES
+                              if name == "conv3x3_rowblk"}):
+        win = wgmma_plan.window(n, c4, co4)
+        check(wgmma_plan.library_window(n, c4, co4) == wgmma_plan.window_ints(win),
+              f"P2 n {n} {c4}->{co4}: the library's window differs from ops/wgmma_plan.py")
+        print(f"build: rowblk window n {n} {c4}->{co4}: tile {win.bm} x {win.bn}, {win.rows} "
+              f"output row(s) a tile, {win.slots} row slots of {c4 // 8 * win.pitch * 16} bytes, "
+              f"{win.b_stages} B stages, {win.smem} bytes of shared memory")
 
 
 def bench_packed_beside_default(benchmarks, bench: dict, smi: str) -> dict:
@@ -1655,6 +1688,7 @@ def run_probes(smi: str) -> tuple[dict, dict]:
         timing.update(replay({(name, (b, 128, 128, 128, 1)): 1}, torch.bfloat16,
                              f"probe kernel_anatomy batch {b} reps 1"))
         timing[name]["marginal_ms"] = anatomy["marginal_ms"][phase]
+        timing[name]["old_marginal_ms"] = anatomy["engine_marginal_ms"][phase]
     b = PROBE_BATCH["rowblk_probe"]
     timing.update(replay({("conv3x3_rowblk", (b, n, c4, c4, nb)): 1
                           for n, c4, blocks in ((128, 128, (5, 10)), (64, 256, (3, 6)))
@@ -1835,11 +1869,12 @@ def main() -> int:
         elif name.startswith("kernel_anatomy["):
             timing = probe_timing[name]
             unit = (f"one launch, reps 1, batch {PROBE_BATCH['kernel_anatomy']}, n 128, 4C = 4Co "
-                    f"= 128; marginal_ms: (t(5) - t(1)) / 4, each rep L2-fed")
+                    f"= 128; marginal_ms: (t(5) - t(1)) / 4, each rep L2-fed, on the wgmma "
+                    f"mainloop; old_ms, old_marginal_ms: the engine's phases")
         elif name == "conv3x3_rowblk":
             timing = probe_timing[name]
             unit = (f"4 launches: L1 nb 5 and 10, L2 nb 3 and 6, batch "
-                    f"{PROBE_BATCH['rowblk_probe']}")
+                    f"{PROBE_BATCH['rowblk_probe']}, on the wgmma mainloop; old_ms: window_conv")
         elif name.startswith("deint_"):
             timing = probe_timing[name]
             unit = (f"2 launches: the L1/L2 and L2/L3 boundaries, batch "
@@ -1854,7 +1889,8 @@ def main() -> int:
                 "superstep": superstep[name], "superstep_packed": superstep_packed[name],
                 "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name],
                 "probes": probes_launches[name]}
-        extra = {key: timing[key] for key in ("marginal_ms", "engine_ms") if key in timing}
+        extra = {key: timing[key] for key in
+                 ("marginal_ms", "old_marginal_ms", "engine_ms", "old_ms") if key in timing}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(runs.values()), **{f"launches_{k}": v for k, v in runs.items()},

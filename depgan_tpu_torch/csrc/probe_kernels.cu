@@ -5,9 +5,12 @@
 //  - P1, run_variant (scripts/kernel_anatomy.py:108, pallas_call :123) over
 //    k_full :80, k_matmul_only :90 and k_stage_only :97: K1's relu conv split
 //    into its phases, each repeated `reps` times in one launch, so that the
-//    marginal cost of a phase is (t(5) - t(1)) / 4. Here the phases are the
-//    Phase argument of the engine's kernel (s2d_gemm.cuh): full, no_epi (no
-//    bias or relu, a raw store of the f32 sums), matmul_only (the products
+//    marginal cost of a phase is (t(5) - t(1)) / 4, in float32; bf16 P1 runs
+//    the phases on K1's wgmma mainloop (wgmma_kernels.cu), and this bf16 route
+//    stays as the reference timed beside it (probes.kernel_anatomy_engine).
+//    Here the phases are the Phase argument of the engine's kernel
+//    (s2d_gemm.cuh): full, no_epi (no bias or relu, a raw store of the f32
+//    sums), matmul_only (the products
 //    over the pre-gathered taps, contiguous tiles) and stage_only (the
 //    gather into shared memory alone). A rep re-reads its block's tile of the
 //    input, which the first rep has brought into L2: the marginals are

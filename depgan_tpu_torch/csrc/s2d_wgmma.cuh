@@ -44,6 +44,15 @@
 // = 32, 64, 128 or 256 (the generator's widths at first_fm 8 to 32), where a
 // lane's runs of 8 columns after the epilogue's transpose lie each in one
 // group at the same channels over the column loop; other widths are refused.
+//
+// The probes run the same mainloop. P1 (kernel_anatomy) is the kernel's
+// Phase argument (the engine's enum, s2d_gemm.cuh): K1's relu launch split
+// into full, no_epi, matmul_only (A from the dense gathered taps by 2-d TMA
+// boxes) and stage_only (the producer's A loads alone), each repeated reps
+// times a tile; production is kProduction. P2 (conv3x3_rowblk) is a kernel
+// of its own, rowblk_wgmma: the row-blocked relu conv over a ring of input
+// rows staged once a work unit (Window below), with K1's tile, B ring, sum
+// order and epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -174,6 +183,82 @@ __host__ __device__ inline Origin origin(int n, int64_t m) {
 // Launches one problem; returns cudaGetLastError() after the launch, or an
 // error code for what the mainloop does not take.
 cudaError_t conv(const Conv& cv, cudaStream_t stream);
+
+// P1: K1's relu conv (one 3x3 operand, no pool, 4Co of one 64- or 128-column
+// block) as the probe phase `phase` (kProbeFull .. kProbeStageOnly), each
+// tile's phase run `reps` times back to back. matmul_only reads a_dense,
+// the (batch*n*n, 4*c4) gathered taps; stage_only writes sums, one float a
+// tile of bm rows, and no output.
+cudaError_t probe(const Conv& cv, int phase, const __nv_bfloat16* a_dense, float* sums, int reps,
+                  cudaStream_t stream);
+
+// P2's window. Work unit (b, s) of a launch with `units` units an image owns
+// padded output rows [s (n+2)/units, (s+1) (n+2)/units), ring rows included:
+// interior rows [ya, yb). Its rows_u = yb - ya output rows read the rows_u + 2
+// padded input rows ya .. yb + 1, each loaded once by TMA into a ring of
+// `slots` row slots. A slot holds one padded input row as c4/8 chunks of 8
+// channels, each chunk `pitch` pixels of 16 bytes: [chunk][pixel][8], the
+// non-swizzled K-major layout, so the 8-row core matrix of any 8 consecutive
+// pixels is 128 contiguous bytes at a 16-byte-aligned start. A tile is `rows`
+// output rows of wrow GEMM rows (n rounded up to 64, so no m64 tile spans two
+// rows); its 16-deep step at depth k0 reads, for output row r and pixel x,
+// slot row r + dy, pixel x + dx, channels c .. c + 15 of chunk() (two chunks,
+// pitch * 16 bytes apart: the descriptor's leading offset; 8-pixel groups
+// 128 bytes apart: its stride offset). A tile's rows past the unit read its
+// last row and are not stored. B streams through a ring of b_stages stages
+// as the mainloop's, as many as fit beside the window up to kStages (two at
+// level 2, whose window takes 144 KB).
+struct Window {
+  int bm, bn, n_blocks;  // the tile: rows, columns, column blocks (bm 256 where bn <= 128)
+  int wrow;              // GEMM rows an output row takes
+  int rows;              // output rows a tile: bm / wrow
+  int pitch;             // pixels of a slot's chunk: wrow + 2 rounded up to 8 (128-byte chunks)
+  int slots;             // row slots: rows + 2
+  int b_stages;          // B ring stages
+  int smem;              // dynamic shared memory bytes, the 1 KB alignment included
+};
+constexpr int kSmemMax = 227 * 1024 - 256;  // dynamic shared memory beside a block's barriers
+
+__host__ __device__ inline int slot_bytes(int c4, int pitch) { return c4 / 8 * pitch * 16; }
+
+// The window of a P2 launch at interior side n; bm 0 where the mainloop
+// refuses it: 4C a multiple of 64 (a 16-deep step is two chunks of one tap
+// group), a padded row at most 256 pixels (one TMA box), every output row in
+// one tile, and two B stages beside the window. The tile is K1's where its
+// slots fit (bm 256 where bn <= 128), else 128 rows.
+__host__ __device__ inline Window window(int n, int c4, int co4) {
+  Window w{};
+  if (n <= 0 || n + 2 > 256 || c4 <= 0 || c4 % 64 != 0 || c4 > 0xFFFF || co4 <= 0 || co4 % 8)
+    return w;
+  const Geometry g = geometry(kGatherConv3x3, n, &c4, 1, co4);  // K1's column blocks
+  w.n_blocks = g.n_blocks;
+  w.bn = g.bn;
+  w.wrow = (n + 63) / 64 * 64;
+  w.pitch = (w.wrow + 2 + 7) / 8 * 8;
+  // bm 256 where bn <= 128 and its slots leave room for two B stages, else 128
+  for (w.bm = w.bn <= 128 ? 2 * kBM : kBM; w.bm >= kBM; w.bm -= kBM) {
+    w.rows = w.bm / w.wrow;
+    w.slots = w.rows + 2;
+    const int fixed = 1024 + w.slots * slot_bytes(c4, w.pitch) + c4 / 4 * 8;  // plan: 2 ints a step
+    w.b_stages = (kSmemMax - fixed) / (w.bn * kBK * 2);
+    if (w.b_stages > kStages) w.b_stages = kStages;
+    w.smem = fixed + w.b_stages * w.bn * kBK * 2;
+    if (w.rows >= 1 && w.b_stages >= 2) return w;
+  }
+  w.bm = 0;
+  return w;
+}
+
+// Interior rows [ya, yb) of unit s of `units` an image.
+__host__ __device__ inline void unit_rows(int n, int units, int s, int* ya, int* yb) {
+  const int rb = (n + 2) / units;
+  *ya = s * rb - 1 < 0 ? 0 : s * rb - 1;
+  *yb = (s + 1) * rb - 1 > n ? n : (s + 1) * rb - 1;
+}
+
+// P2: K1's relu conv with the output cut into `units` row blocks an image
+// (units divides n+2), each staging its input rows once.
+cudaError_t rowblk(const Conv& cv, int units, cudaStream_t stream);
 
 }  // namespace wg
 }  // namespace depgan

@@ -18,6 +18,21 @@
 //    the critic's SAME 5x5 convs as 9 dense taps, relu or none; n = 128
 //    (4C 16 or 64 -> 64) and n = 64 (64 or 128 -> 128), and the transposes
 //    64 -> 16, 64 -> 64, 128 -> 64 and 128 -> 128: K = 144 to 1152.
+// and, of the JAX package's probe scripts, in bf16:
+//  - P1, run_variant (scripts/kernel_anatomy.py:108; k_full :80,
+//    k_matmul_only :90, k_stage_only :97): K1's relu launch split into
+//    phases, the kernel's PHASE argument, each repeated reps times a tile,
+//    so that (t(5) - t(1)) / 4 is a rep's marginal cost with its boxes fed
+//    from L2 (a whole walk's repeat would come from HBM: the level-1 plane at
+//    batch 64 is ~277 MB). Its no_epi - full marginal is the epilogue's cost,
+//    matmul_only - full the gathered boxes' against a dense A.
+//  - P2, conv3x3_rowblk (scripts/rowblk_probe.py:125, kernel
+//    _kernel_rowblk :54): K1's relu conv over work units of (n+2)/units
+//    padded rows, each input row loaded once a unit into a window of row
+//    slots (rowblk_wgmma). K1's tile re-reads each input row from L2 for
+//    the taps of every tile that touches it (~4x at level 1); the window
+//    reads it once a unit. Its A operand is read from the window through
+//    a non-swizzled descriptor, so a tap's pixel shift is an address.
 //
 // Bound: the 3x3 GEMMs do ~300 FLOP per byte of their planes, at the H100's
 // bf16 ridge, so the products' rate bounds them; the 5x5 GEMMs do 40-140,
@@ -43,7 +58,8 @@
 // runs in 16-byte stores. The block also writes its share of the zero rings.
 // Each output sums its k-products in 16-deep wgmma steps in k order, the
 // order of the engine's wmma steps, and equals the engine's output bit for
-// bit (a K padded to whole k-tiles adds products of zeros).
+// bit (a K padded to whole k-tiles adds products of zeros); so do P1's full
+// and matmul_only and P2, which sum in the same order.
 
 #include <cuda.h>
 
@@ -62,11 +78,14 @@ constexpr int kBBox = 64;                   // B box: 64 columns (128 bytes) x 6
 constexpr int kBBoxBytes = kBBox * kBK * 2;
 
 struct alignas(64) Params {
-  CUtensorMap a_map[2];  // the planes as (4C, P, P, B), box (32, bx, by, bb); TMA route only
+  CUtensorMap a_map[2];  // the planes as (4C, P, P, B), box (32, bx, by, bb); TMA route only.
+                         // P1 matmul_only: a_map[0], the dense taps as (16C, M), box (32, bm)
   CUtensorMap b_map[2];  // the weights as (co4, k), box (64, 64)
   Conv conv;
   Geometry geo;
   int kt0, kt_total;     // k-tiles of operand 0, of both
+  int reps;              // P1: repeats of each tile's phase
+  float* sums;           // P1 stage_only: one float a tile of bm rows
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -145,6 +164,12 @@ __device__ __forceinline__ uint64_t desc_a(uint32_t addr) {
 __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kBBoxBytes >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// P2's A from the window: K-major, no swizzle (layout 0), the two 8-deep
+// core matrices of a step `lead` bytes apart, 8-row groups 128 bytes apart.
+__device__ __forceinline__ uint64_t desc_window(uint32_t addr, uint32_t lead) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
 }
 
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A K-major, B N-major
@@ -248,11 +273,90 @@ template <> struct Wgmma<256> {
   }
 };
 
+// The epilogue's transpose. Lane q of a quad holds columns 8j + 2q, +1 of
+// each 8-column block j of its rows (i = 0: the upper 8 of its 16, 1: the
+// lower); a 4 x 4 transpose over the group of blocks 4G .. 4G + 3 gives it
+// the 8 columns of block 4G + q, in 4 rounds of shuffles.
+template <int BN>
+__device__ __forceinline__ void quad_columns(const float (&acc)[BN / 2], int G, int i, int q,
+                                             int lane, float (&v)[8]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int sb = (q + r) & 3, from = (q - r) & 3;  // block sent, lane received from
+    float s0 = acc[(4 * G + 3) * 4 + 2 * i], s1 = acc[(4 * G + 3) * 4 + 2 * i + 1];
+#pragma unroll
+    for (int blk = 2; blk >= 0; --blk) {
+      if (sb == blk) s0 = acc[(4 * G + blk) * 4 + 2 * i], s1 = acc[(4 * G + blk) * 4 + 2 * i + 1];
+    }
+    const float r0 = __shfl_sync(0xffffffffu, s0, (lane & ~3) | from);
+    const float r1 = __shfl_sync(0xffffffffu, s1, (lane & ~3) | from);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (from == u) v[2 * u] = r0, v[2 * u + 1] = r1;
+    }
+  }
+}
+
+// Eight bf16 values, one 16-byte run.
+union Pack {
+  uint4 u;
+  __nv_bfloat16 v[8];
+};
+
+// v += the bias of columns col .. col + 7.
+__device__ __forceinline__ void add_bias(const float* bias, int col, float (&v)[8]) {
+  const float4 b0 = *reinterpret_cast<const float4*>(bias + col);
+  const float4 b1 = *reinterpret_cast<const float4*>(bias + col + 4);
+  const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] += b[e];
+}
+
+// v rounded to bf16 and stored as one 16-byte run at dst; the rounded values.
+__device__ __forceinline__ Pack store_bf16(__nv_bfloat16* dst, const float (&v)[8]) {
+  Pack out;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) out.v[e] = __float2bfloat16(v[e]);
+  *reinterpret_cast<uint4*>(dst) = out.u;
+  return out;
+}
+
+// A stage's share of A summed by a consumer thread (P1 stage_only): 16-byte
+// runs tid, tid + 256, ... of its bytes, as float32.
+template <int BYTES>
+__device__ __forceinline__ float stage_sum(const unsigned char* a, int ctid) {
+  float sum = 0.f;
+#pragma unroll
+  for (int v = ctid; v < BYTES / 16; v += 256) {
+    const uint4 u = reinterpret_cast<const uint4*>(a)[v];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      sum += f.x;
+      sum += f.y;
+    }
+  }
+  return sum;
+}
+
+__device__ __forceinline__ void consumers_sync() {  // both consumer warpgroups, not the producer
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
 // MT m64 tiles a consumer warpgroup: BM = 128 MT rows a block. POOL: K2's
 // pooled epilogue, a separate instantiation so the others keep theirs lean.
-template <int BN, int MT, bool POOL>
+// PHASE: kProduction, or a P1 probe phase (s2d_gemm.cuh's Phase), each
+// compiled away from the others: full (K1's relu launch), no_epi (no bias,
+// the launch's epilogue kNone), matmul_only (A by 2-d boxes of the dense
+// taps), stage_only (the A loads alone, summed). A probe tile runs its phase
+// p.reps times back to back; a rep re-reads its tile's A and B boxes, which
+// the first rep brought into L2.
+template <int BN, int MT, bool POOL, int PHASE = kProduction>
 __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant__ Params p) {
   static_assert(!POOL || BN == 64 || BN == 128 || BN == 256, "the pool takes BN = 64, 128, 256");
+  static_assert(PHASE == kProduction || !POOL, "the probes run K1's unpooled launch");
+  constexpr bool kStage = PHASE == kProbeStageOnly;
   constexpr int kBMt = kBM * MT, kA = MT * kABytes, kAHalf = MT * kAHalfBytes;
   constexpr int kStageBytes = kA + BN * kBK * 2;
   extern __shared__ unsigned char smem_raw[];
@@ -262,7 +366,8 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
 
   const Conv& cv = p.conv;
   const int tid = threadIdx.x, n = cv.n, side = n + 2, co4 = cv.co4;
-  const bool tma = p.geo.route == kRouteTma;
+  const bool tma = PHASE == kProbeMatmulOnly || p.geo.route == kRouteTma;
+  const int reps = PHASE == kProduction ? 1 : p.reps;
   // The load plan, once a block: (channel, dx, dy) of every kVec-deep run of
   // the GEMM depth, operand 0's then operand 1's (plan_entry; kPast where a
   // k-tile runs past the operand's K).
@@ -281,7 +386,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
   }
   const int64_t ring0 = (int64_t)blockIdx.x * kThreadsWg + tid;
   const int64_t ring_step = (int64_t)gridDim.x * kThreadsWg;
-  zero_ring(cv.out, cv.batch, side, co4, ring0, ring_step);
+  if constexpr (!kStage) zero_ring(cv.out, cv.batch, side, co4, ring0, ring_step);
   if (POOL && cv.pool == kPoolS2d)
     zero_ring(cv.pooled, cv.batch, n / 2 + 2, co4, ring0, ring_step);
   __syncthreads();
@@ -299,18 +404,25 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
       int it = 0;
       for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int n0 = (int)(tile % p.geo.n_blocks) * BN;
-        const Origin o = origin(n, tile / p.geo.n_blocks * kBMt);
+        const int64_t m0 = tile / p.geo.n_blocks * kBMt;
+        const Origin o = origin(n, m0);
+        for (int rep = 0; rep < reps; ++rep)
         for (int t = 0; t < p.kt_total; ++t, ++it) {
           const int s = it % kStages, op = t < p.kt0 ? 0 : 1;
           if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
           unsigned char* a = smem + s * kStageBytes;
-          mbar_expect_tx(&full[s], kStageBytes);
+          mbar_expect_tx(&full[s], kStage ? kA : kStageBytes);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int e = plan[t * (kBK / kVec) + h * (kHalf / kVec)];
-            tma_4d(a + h * kAHalf, &p.a_map[op], &full[s], e & 0xFFFF,
-                   o.x + ((e >> 16) & 15), o.y + (e >> 20), o.b);
+            if constexpr (PHASE == kProbeMatmulOnly) {  // rows m0.., depths of the dense taps
+              tma_2d(a + h * kAHalf, &p.a_map[0], &full[s], t * kBK + h * kHalf, (int)m0);
+            } else {
+              const int e = plan[t * (kBK / kVec) + h * (kHalf / kVec)];
+              tma_4d(a + h * kAHalf, &p.a_map[op], &full[s], e & 0xFFFF,
+                     o.x + ((e >> 16) & 15), o.y + (e >> 20), o.b);
+            }
           }
+          if constexpr (kStage) continue;
           const int k0 = (t - (op ? p.kt0 : 0)) * kBK;
 #pragma unroll
           for (int j = 0; j < BN / kBBox; ++j)
@@ -335,15 +447,16 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
           const Origin om = origin(n, m);
           pix[i] = m < M ? (om.b * side + om.y) * side + om.x : -1;
         }
+        for (int rep = 0; rep < reps; ++rep)
         for (int t = 0; t < p.kt_total; ++t, ++it) {
           const int s = it % kStages, op = t < p.kt0 ? 0 : 1;
           if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
           unsigned char* a = smem + s * kStageBytes;
           if (tid == 0) {
             const int k0 = (t - (op ? p.kt0 : 0)) * kBK;
-            mbar_expect_tx(&full[s], BN * kBK * 2);
+            mbar_expect_tx(&full[s], kStage ? 0 : BN * kBK * 2);  // stage_only: no B
 #pragma unroll
-            for (int j = 0; j < BN / kBBox; ++j)
+            for (int j = 0; j < (kStage ? 0 : BN / kBBox); ++j)
               tma_2d(a + kA + j * kBBoxBytes, &p.b_map[op], &full[s], n0 + j * kBBox, k0);
           }
           const int c4 = cv.c4[op], e = plan[t * (kBK / kVec) + kv];
@@ -384,14 +497,33 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
   // alone. At BN = 64 (4Co 32 or 64, cp 8 or 16) every G gives the lane
   // channels 8q % cp, and the lanes of its quad hold the other groups.
   constexpr int kSlots = BN == 256 ? 2 : 1;
-  union Pack {
-    uint4 u;
-    __nv_bfloat16 v[8];
-  };
   int it = 0;
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int n0 = (int)(tile % p.geo.n_blocks) * BN;
     const int64_t m0 = tile / p.geo.n_blocks * kBMt;
+    for (int rep = 0; rep < reps; ++rep) {
+    if constexpr (kStage) {  // sum the stage's A, free it; one sum a tile
+      __shared__ float warp_sums[8];
+      float staged = 0.f;
+      for (int t = 0; t < p.kt_total; ++t, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        staged += stage_sum<kA>(smem + s * kStageBytes, tid - 128);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) staged += __shfl_xor_sync(0xffffffffu, staged, o);
+      if (lane == 0) warp_sums[tid / 32 - 4] = staged;
+      consumers_sync();
+      if (tid == 128 && tile % p.geo.n_blocks == 0) {
+        float sum = 0.f;
+        for (int w = 0; w < 8; ++w) sum += warp_sums[w];
+        p.sums[tile / p.geo.n_blocks] = sum;
+      }
+      consumers_sync();  // warp_sums is read before the next rep writes it
+      continue;
+    }
     float acc[MT][BN / 2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -422,9 +554,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) pin(acc[mt][e]);
 
-    // Epilogue. Lane q of a quad holds columns 8j + 2q, +1 of each 8-column
-    // block j; a 4 x 4 transpose over each group of four blocks gives it the
-    // 8 columns of block 4G + q, in 4 rounds of shuffles.
+    // Epilogue: quad_columns gives each lane 8 consecutive columns of a row.
 #pragma unroll
     for (int mi = 0; mi < 2 * MT; ++mi) {
       const int mt = mi / 2, i = mi % 2;
@@ -441,29 +571,10 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
 #pragma unroll
       for (int G = 0; G < BN / 32; ++G) {
         float v[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int sb = (q + r) & 3, from = (q - r) & 3;  // block sent, lane received from
-          float s0 = acc[mt][(4 * G + 3) * 4 + 2 * i], s1 = acc[mt][(4 * G + 3) * 4 + 2 * i + 1];
-#pragma unroll
-          for (int blk = 2; blk >= 0; --blk) {
-            if (sb == blk)
-              s0 = acc[mt][(4 * G + blk) * 4 + 2 * i], s1 = acc[mt][(4 * G + blk) * 4 + 2 * i + 1];
-          }
-          const float r0 = __shfl_sync(0xffffffffu, s0, (lane & ~3) | from);
-          const float r1 = __shfl_sync(0xffffffffu, s1, (lane & ~3) | from);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (from == u) v[2 * u] = r0, v[2 * u + 1] = r1;
-          }
-        }
+        quad_columns<BN>(acc[mt], G, i, q, lane, v);
         const int col = n0 + 8 * (4 * G + q);
         if (m >= M || col >= co4) continue;
-        const float4 b0 = *reinterpret_cast<const float4*>(cv.bias + col);
-        const float4 b1 = *reinterpret_cast<const float4*>(cv.bias + col + 4);
-        const float bias[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] += bias[e];
+        if constexpr (PHASE != kProbeNoEpi) add_bias(cv.bias, col, v);  // no_epi: the raw sums
         if (cv.epilogue == kRelu) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
@@ -479,10 +590,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
           for (int e = 0; e < 8; ++e)
             v[e] = film_site(v[e], gamma[e], beta[e], __bfloat162float(tr.v[e]));
         }
-        Pack out;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) out.v[e] = __float2bfloat16(v[e]);
-        *reinterpret_cast<uint4*>(cv.out + pos * co4 + col) = out.u;
+        const Pack out = store_bf16(cv.out + pos * co4 + col, v);
         if constexpr (POOL) {  // the pool takes the stored (rounded) values
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
@@ -510,14 +618,192 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
                          (2 * (o.y & 1) + (o.x & 1)) * cp);
 #pragma unroll
           for (int sl = 0; sl < kSlots; ++sl) {
-            Pack pk;
-#pragma unroll
-            for (int e = 0; e < 8; ++e) pk.v[e] = __float2bfloat16(pm[sl][e]);
-            *reinterpret_cast<uint4*>(dst + 32 * sl) = pk.u;
+            store_bf16(dst + 32 * sl, pm[sl]);
           }
         }
       }
     }
+    }  // reps
+  }
+}
+
+constexpr int kMaxSlots = 2 * kBM / 64 + 2;  // a tile of four 64-pixel rows and its two below
+
+struct alignas(64) WinParams {
+  CUtensorMap x_map;  // the plane as (4C, P, P, B), box (8, n+2, 1, 1), no swizzle: a row's chunk
+  CUtensorMap b_map;  // the weights as (co4, k), box (64, 64)
+  Conv conv;
+  Window win;
+  int units;          // work units an image
+  int kt;             // k-tiles: 4C / 16
+};
+
+// P2 (see Window in s2d_wgmma.cuh): a persistent block walks work units
+// blockIdx.x, + grid, ...; its producer thread loads each unit's input rows
+// once into the slot ring (row j of the block's walk in slot j % slots) and
+// streams B for each tile and column block; the consumer
+// warpgroups take a unit's output rows `rows` at a time, as K1's tile: m64
+// tile g MT + mt is output row (64 (g MT + mt)) / wrow at pixel
+// (64 (g MT + mt)) % wrow. A tile's rows are freed once its last column
+// block's products are done, before its epilogue, except the two the next
+// tile reads again. The producer issues a tile's first b_stages B stages
+// before its rows (they wait only on the previous tile's products), so that
+// B is in place when the freed slots have been refilled.
+template <int BN, int MT>
+__global__ void __launch_bounds__(kThreadsWg, 1) rowblk_wgmma(const __grid_constant__ WinParams p) {
+  constexpr int kBStage = BN * kBK * 2, kSteps = kBK / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  __shared__ __align__(8) uint64_t full_b[kStages], empty_b[kStages];
+  __shared__ __align__(8) uint64_t full_w[kMaxSlots], empty_w[kMaxSlots];
+
+  const Conv& cv = p.conv;
+  const Window& w = p.win;
+  const int tid = threadIdx.x, n = cv.n, side = n + 2, c4 = cv.c4[0], co4 = cv.co4;
+  const int sbytes = slot_bytes(c4, w.pitch), lead = w.pitch * 16, per = w.n_blocks * p.kt;
+  unsigned char* win = smem + w.b_stages * kBStage;
+  // The step plan: of each 16-deep step, the window offset of its first
+  // chunk at pixel dx of the slot, and dy slots' bytes.
+  int2* plan = reinterpret_cast<int2*>(win + w.slots * sbytes);
+  for (int j = tid; j < p.kt * kSteps; j += kThreadsWg) {
+    const Chunk ck = chunk(kGatherConv3x3, c4, j * 16);
+    plan[j] = make_int2(ck.c / 8 * lead + ck.dx * 16, ck.dy * sbytes);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < w.b_stages; ++s) mbar_init(&full_b[s], 1), mbar_init(&empty_b[s], 8);
+    for (int s = 0; s < w.slots; ++s) mbar_init(&full_w[s], 1), mbar_init(&empty_w[s], 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  zero_ring(cv.out, cv.batch, side, co4, (int64_t)blockIdx.x * kThreadsWg + tid,
+            (int64_t)gridDim.x * kThreadsWg);
+  __syncthreads();
+  const int units = cv.batch * p.units;
+
+  if (tid < 128) {  // the producer warpgroup: one thread issues every box
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (tid != 0) return;
+    int gi = 0, bt = 0;  // rows loaded, B stages loaded
+    const uint32_t row_bytes = (uint32_t)c4 * side * 2;
+    auto load_b = [&](int k) {  // k-tile k % kt of column block k / kt
+      const int s = bt % w.b_stages;
+      if (bt >= w.b_stages) mbar_wait(&empty_b[s], (bt / w.b_stages - 1) & 1);
+      mbar_expect_tx(&full_b[s], kBStage);
+#pragma unroll
+      for (int j = 0; j < BN / kBBox; ++j)
+        tma_2d(smem + s * kBStage + j * kBBoxBytes, &p.b_map, &full_b[s], k / p.kt * BN + j * kBBox,
+               k % p.kt * kBK);
+      ++bt;
+    };
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int b = u / p.units;
+      int ya, yb;
+      unit_rows(n, p.units, u % p.units, &ya, &yb);
+      const int rows_u = yb - ya;
+      for (int t0 = 0, next = 0; t0 < rows_u; t0 += w.rows) {
+        for (int k = 0; k <= per; ++k) {
+          if (k == min(w.b_stages, per)) {  // the tile's rows, once its first B stages are issued
+            for (const int need = min(t0 + w.rows + 2, rows_u + 2); next < need; ++next, ++gi) {
+              const int sl = gi % w.slots;
+              if (gi >= w.slots) mbar_wait(&empty_w[sl], (gi / w.slots - 1) & 1);
+              mbar_expect_tx(&full_w[sl], row_bytes);
+              for (int k8 = 0; k8 < c4 / 8; ++k8)
+                tma_4d(win + sl * sbytes + k8 * lead, &p.x_map, &full_w[sl], k8 * 8, 0,
+                       ya + next, b);
+            }
+          }
+          if (k < per) load_b(k);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int g = tid / 128 - 1, warp = (tid / 32) & 3, lane = tid & 31, q = lane & 3;
+  const uint32_t win0 = smem_u32(win), b0 = smem_u32(smem), ring = w.slots * sbytes;
+  int gi0 = 0, bt = 0;  // the walk's index of the unit's first row; B stages consumed
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int b = u / p.units;
+    int ya, yb;
+    unit_rows(n, p.units, u % p.units, &ya, &yb);
+    const int rows_u = yb - ya;
+    if (rows_u <= 0) continue;  // a unit of ring rows alone: nothing loaded, nothing to compute
+    for (int t0 = 0; t0 < rows_u; t0 += w.rows) {
+      const int rg = min(w.rows, rows_u - t0), need = min(t0 + w.rows + 2, rows_u + 2);
+      for (int j = t0; j < need; ++j)
+        mbar_wait(&full_w[(gi0 + j) % w.slots], ((gi0 + j) / w.slots) & 1);
+      // Each m64 tile's A at dy = 0 and dx = 0: its output row's slot (rows
+      // past the unit read its last row; their outputs are not stored) at
+      // its first pixel.
+      uint32_t abase[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int i64 = (g * MT + mt) * 64, r = min(i64 / w.wrow, rg - 1);
+        abase[mt] = win0 + (gi0 + t0 + r) % w.slots * sbytes + i64 % w.wrow * 16;
+      }
+      for (int col = 0; col < w.n_blocks; ++col) {
+        float acc[MT][BN / 2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) acc[mt][e] = 0.f;
+        for (int t = 0; t < p.kt; ++t, ++bt) {
+          const int s = bt % w.b_stages;
+          mbar_wait(&full_b[s], (bt / w.b_stages) & 1);
+          const uint32_t bs = b0 + s * kBStage;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk) {
+            const int2 e = plan[t * kSteps + kk];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              uint32_t a = abase[mt] + e.y;  // slot row + dy, wrapped round the ring
+              if (a >= win0 + ring) a -= ring;
+              Wgmma<BN>::mma(acc[mt], desc_window(a + e.x, lead), desc_b(bs + kk * 16 * 128));
+            }
+          }
+          wgmma_commit();
+          if (t > 0) {  // stage bt-1's products are done: free it
+            wgmma_wait<1>();
+            if (lane == 0) mbar_arrive(&empty_b[(bt - 1) % w.b_stages]);
+          }
+        }
+        wgmma_wait<0>();
+        if (lane == 0) {
+          mbar_arrive(&empty_b[(bt - 1) % w.b_stages]);
+          if (col == w.n_blocks - 1) {  // free the rows the next tile does not read
+            const int last = t0 + w.rows >= rows_u ? rows_u + 2 : t0 + w.rows;
+            for (int j = t0; j < last; ++j) mbar_arrive(&empty_w[(gi0 + j) % w.slots]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) pin(acc[mt][e]);
+
+        // K1's relu epilogue; rows of the tile past the unit or the plane are not stored.
+#pragma unroll
+        for (int mi = 0; mi < 2 * MT; ++mi) {
+          const int mt = mi / 2, i = mi % 2, i64 = (g * MT + mt) * 64, r = i64 / w.wrow;
+          const int x = i64 % w.wrow + warp * 16 + (lane >> 2) + 8 * i;
+          const bool live = r < rg && x < n;
+          const int64_t pos = ((int64_t)b * side + ya + t0 + r + 1) * side + x + 1;
+#pragma unroll
+          for (int G = 0; G < BN / 32; ++G) {
+            float v[8];
+            quad_columns<BN>(acc[mt], G, i, q, lane, v);
+            const int c = col * BN + 8 * (4 * G + q);
+            if (!live || c >= co4) continue;
+            add_bias(cv.bias, c, v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
+            store_bf16(cv.out + pos * co4 + c, v);
+          }
+        }
+      }
+    }
+    gi0 += rows_u + 2;
   }
 }
 
@@ -558,23 +844,29 @@ bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN, int MT, bool POOL>
+// The SMs of the current device, the persistent grid's cap.
+cudaError_t sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return err;
+}
+
+template <int BN, int MT, bool POOL, int PHASE = kProduction>
 cudaError_t launch_bn(const Params& prm, cudaStream_t stream) {
   // The ring, the plan (an int a kVec-deep run) and the 1 KB alignment.
   const int smem = kStages * (MT * kABytes + BN * kBK * 2) + prm.kt_total * (kBK / kVec) * 4 + 1024;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(s2d_wgmma<BN, MT, POOL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      s2d_wgmma<BN, MT, POOL, PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int64_t rows = (int64_t)prm.conv.batch * prm.conv.n * prm.conv.n;
   const int64_t tiles = (rows + kBM * MT - 1) / (kBM * MT) * prm.geo.n_blocks;
-  s2d_wgmma<BN, MT, POOL><<<(unsigned)(tiles < sms ? tiles : sms), kThreadsWg, smem, stream>>>(
-      prm);
+  s2d_wgmma<BN, MT, POOL, PHASE>
+      <<<(unsigned)(tiles < sms ? tiles : sms), kThreadsWg, smem, stream>>>(prm);
   return cudaGetLastError();
 }
 
@@ -586,9 +878,22 @@ cudaError_t launch_tile(const Params& prm, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
+// P1's instantiation for the launch's tile: 4Co of one block of 64 or 128.
+template <int PHASE>
+cudaError_t launch_phase(const Params& prm, cudaStream_t stream) {
+  const bool two = prm.geo.bm == 2 * kBM;
+  if (prm.geo.bn == 64)
+    return two ? launch_bn<64, 2, false, PHASE>(prm, stream)
+               : launch_bn<64, 1, false, PHASE>(prm, stream);
+  if (prm.geo.bn == 128)
+    return two ? launch_bn<128, 2, false, PHASE>(prm, stream)
+               : launch_bn<128, 1, false, PHASE>(prm, stream);
+  return cudaErrorInvalidValue;
+}
 
-cudaError_t conv(const Conv& cv, cudaStream_t stream) {
+// The launch's geometry and tensor maps; an error code for what the
+// mainloop does not take.
+cudaError_t prepare(const Conv& cv, Params& prm) {
   if (cv.batch <= 0 || !takes(cv.gather, cv.n, cv.c4, cv.n_ops, cv.co4, cv.pool))
     return cudaErrorInvalidValue;
   if (cv.epilogue != kRelu && cv.epilogue != kFilm && cv.epilogue != kNone)
@@ -598,7 +903,6 @@ cudaError_t conv(const Conv& cv, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   if (cv.pool != kPoolNone && (cv.epilogue != kRelu || cv.pooled == nullptr))
     return cudaErrorInvalidValue;
-  Params prm{};
   prm.conv = cv;
   prm.geo = geometry(cv.gather, cv.n, cv.c4, cv.n_ops, cv.co4);
   prm.kt0 = (depth(cv.gather, cv.c4[0]) + kBK - 1) / kBK;
@@ -619,6 +923,15 @@ cudaError_t conv(const Conv& cv, cudaStream_t stream) {
     if (!encode(&prm.a_map[o], cv.x[o], 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_64B))
       return cudaErrorInvalidValue;
   }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+cudaError_t conv(const Conv& cv, cudaStream_t stream) {
+  Params prm{};
+  const cudaError_t err = prepare(cv, prm);
+  if (err != cudaSuccess) return err;
   if (prm.geo.bm == 2 * kBM) return prm.geo.bn == 64 ? launch_tile<64, 2>(prm, stream)
                                                      : launch_tile<128, 2>(prm, stream);
   switch (prm.geo.bn) {
@@ -626,6 +939,82 @@ cudaError_t conv(const Conv& cv, cudaStream_t stream) {
     case 128: return launch_tile<128, 1>(prm, stream);
     case 192: return launch_tile<192, 1>(prm, stream);
     case 256: return launch_tile<256, 1>(prm, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t probe(const Conv& cv, int phase, const __nv_bfloat16* a_dense, float* sums, int reps,
+                  cudaStream_t stream) {
+  if (reps < 1 || cv.gather != kGatherConv3x3 || cv.n_ops != 1 || cv.pool != kPoolNone ||
+      cv.epilogue != (phase == kProbeNoEpi ? kNone : kRelu) ||
+      (phase == kProbeMatmulOnly && a_dense == nullptr) ||
+      (phase == kProbeStageOnly && sums == nullptr))
+    return cudaErrorInvalidValue;
+  Params prm{};
+  cudaError_t err = prepare(cv, prm);
+  if (err != cudaSuccess) return err;
+  if (prm.geo.n_blocks != 1 || prm.geo.bn > 128) return cudaErrorInvalidValue;
+  prm.reps = reps;
+  prm.sums = sums;
+  if (phase == kProbeMatmulOnly) {  // the dense taps (M, 16C) in 32-deep boxes of bm rows
+    const cuuint64_t dims[2] = {(cuuint64_t)4 * cv.c4[0], (cuuint64_t)cv.batch * cv.n * cv.n};
+    const cuuint64_t strides[1] = {dims[0] * 2};
+    const cuuint32_t box[2] = {kHalf, (cuuint32_t)prm.geo.bm};
+    if (!encode(&prm.a_map[0], a_dense, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B))
+      return cudaErrorInvalidValue;
+  }
+  switch (phase) {
+    case kProbeFull: return launch_phase<kProbeFull>(prm, stream);
+    case kProbeNoEpi: return launch_phase<kProbeNoEpi>(prm, stream);
+    case kProbeMatmulOnly: return launch_phase<kProbeMatmulOnly>(prm, stream);
+    case kProbeStageOnly: return launch_phase<kProbeStageOnly>(prm, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+namespace {
+
+template <int BN, int MT>
+cudaError_t launch_rowblk(const WinParams& prm, cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      rowblk_wgmma<BN, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, prm.win.smem);
+  if (attr != cudaSuccess) return attr;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int units = prm.conv.batch * prm.units;
+  rowblk_wgmma<BN, MT><<<(unsigned)(units < sms ? units : sms), kThreadsWg, prm.win.smem,
+                         stream>>>(prm);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+cudaError_t rowblk(const Conv& cv, int units, cudaStream_t stream) {
+  WinParams prm{};
+  prm.win = window(cv.n, cv.c4[0], cv.co4);
+  if (prm.win.bm == 0 || cv.batch <= 0 || cv.gather != kGatherConv3x3 || cv.n_ops != 1 ||
+      cv.pool != kPoolNone || cv.epilogue != kRelu || units < 1 || (cv.n + 2) % units != 0)
+    return cudaErrorInvalidValue;
+  prm.conv = cv;
+  prm.units = units;
+  prm.kt = 4 * cv.c4[0] / kBK;
+  const cuuint64_t side = cv.n + 2, c4 = cv.c4[0];
+  const cuuint64_t w_dims[2] = {(cuuint64_t)cv.co4, 4 * c4};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)cv.co4 * 2};
+  const cuuint32_t w_box[2] = {kBBox, kBK};
+  const cuuint64_t x_dims[4] = {c4, side, side, (cuuint64_t)cv.batch};
+  const cuuint64_t x_strides[3] = {c4 * 2, side * c4 * 2, side * side * c4 * 2};
+  const cuuint32_t x_box[4] = {kVec, (cuuint32_t)side, 1, 1};
+  if (!encode(&prm.b_map, cv.w[0], 2, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&prm.x_map, cv.x[0], 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const bool two = prm.win.bm == 2 * kBM;
+  switch (prm.win.bn) {
+    case 64: return two ? launch_rowblk<64, 2>(prm, stream) : launch_rowblk<64, 1>(prm, stream);
+    case 128: return two ? launch_rowblk<128, 2>(prm, stream) : launch_rowblk<128, 1>(prm, stream);
+    case 192: return launch_rowblk<192, 1>(prm, stream);
+    case 256: return launch_rowblk<256, 1>(prm, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -666,4 +1055,71 @@ extern "C" int depgan_wgmma_plan(int n, int c4a, int c4b, int co4, int gather, i
     }
   }
   return w;
+}
+
+namespace {
+
+// K1's relu conv of one bf16 3x3 operand, as a wg::Conv.
+depgan::wg::Conv relu_conv(const void* x, const void* w4, const void* bias, void* out, int batch,
+                           int n, int c4, int co4) {
+  using namespace depgan;
+  wg::Conv cv{};
+  cv.x[0] = static_cast<const __nv_bfloat16*>(x);
+  cv.w[0] = static_cast<const __nv_bfloat16*>(w4);
+  cv.c4[0] = c4;
+  cv.gather = kGatherConv3x3, cv.n_ops = 1, cv.batch = batch, cv.n = n, cv.co4 = co4;
+  cv.epilogue = kRelu, cv.pool = kPoolNone;
+  cv.bias = static_cast<const float*>(bias);
+  cv.out = static_cast<__nv_bfloat16*>(out);
+  return cv;
+}
+
+}  // namespace
+
+// P1 in bf16 on the mainloop. phase: 1 = full, 2 = no_epi, 3 = matmul_only
+// (reads a_dense, the (batch*n*n, 4*c4) gathered taps, not x), 4 =
+// stage_only (writes sums, one float a tile of the geometry's bm rows, not
+// out). The relu conv's arguments as depgan_conv3x3_s2d_fused; 4Co of one
+// block of at most 128 columns.
+extern "C" int depgan_wgmma_probe(int phase, const void* x, const void* a_dense, const void* w4,
+                                  const void* bias, void* out, void* sums, int batch, int n, int c4,
+                                  int co4, int reps, void* stream) {
+  using namespace depgan;
+  wg::Conv cv = relu_conv(x, w4, bias, out, batch, n, c4, co4);
+  if (phase == kProbeNoEpi) cv.epilogue = kNone;
+  return wg::probe(cv, phase, static_cast<const __nv_bfloat16*>(a_dense), static_cast<float*>(sums),
+                   reps, static_cast<cudaStream_t>(stream));
+}
+
+// P2 in bf16 on the mainloop: the relu conv with `units` row blocks an
+// image (units divides n+2); arguments as depgan_conv3x3_rowblk.
+extern "C" int depgan_conv3x3_rowblk_wgmma(const void* x, const void* w4, const void* bias,
+                                           void* out, int batch, int n, int c4, int co4, int units,
+                                           void* stream) {
+  return depgan::wg::rowblk(relu_conv(x, w4, bias, out, batch, n, c4, co4), units,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// P2's window as the kernel takes it: out[0..8] = bm, bn, n_blocks, wrow,
+// rows, pitch, slots, b_stages, smem; then, for each 16-deep step in k order,
+// (channel, dx, dy): what it reads at slot row +dy, pixel +dx. Returns the
+// number of ints written, or -1 for widths the kernel refuses or if they
+// would not fit in cap.
+extern "C" int depgan_rowblk_plan(int n, int c4, int co4, int* out, int cap) {
+  using namespace depgan::wg;
+  const Window w = window(n, c4, co4);
+  if (w.bm == 0) return -1;
+  const int head[9] = {w.bm,    w.bn,    w.n_blocks, w.wrow, w.rows,
+                       w.pitch, w.slots, w.b_stages, w.smem};
+  int k = 0;
+  for (int v : head) {
+    if (k >= cap) return -1;
+    out[k++] = v;
+  }
+  for (int k0 = 0; k0 < 4 * c4; k0 += 16) {
+    if (k + 3 > cap) return -1;
+    const Chunk ck = chunk(depgan::kGatherConv3x3, c4, k0);
+    out[k++] = ck.c, out[k++] = ck.dx, out[k++] = ck.dy;
+  }
+  return k;
 }

@@ -21,7 +21,10 @@
 //    4Co 16 to 128) the product is 40-140 FLOP per byte of its bf16 planes,
 //    under the H100's ridge: the bound is the planes' traffic.
 //  - P2, conv3x3_rowblk (scripts/rowblk_probe.py:125, kernel _kernel_rowblk
-//    :54): K1's relu conv with a row-blocked output grid (batch, n_blocks),
+//    :54), in float32; bf16 P2 runs rowblk_wgmma (wgmma_kernels.cu), and this
+//    bf16 route stays as the reference timed beside it
+//    (probes.conv3x3_rowblk_window). K1's relu conv with a row-blocked
+//    output grid (batch, n_blocks),
 //    block s owning padded output rows [s*rows_blk, (s+1)*rows_blk), ring
 //    rows included. The block walks its rows R at a time over a rolling
 //    window of R+2 input rows, so each input row is loaded once per block,

@@ -59,6 +59,10 @@ _SIGNATURES = {
     "depgan_conv3x3_rowblk": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, phase, x, a_dense, w4, bias, out, sums, batch, n, c4, co4, reps, stream
     "depgan_s2d_gemm_probe": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # phase, x, a_dense, w4, bias, out, sums, batch, n, c4, co4, reps, stream (bf16)
+    "depgan_wgmma_probe": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w4, bias, out, batch, n, c4, co4, units, stream (bf16)
+    "depgan_conv3x3_rowblk_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # kind, x, out, rows, m, c_bytes, stream
     "depgan_deint": [_I, _P, _P, ctypes.c_longlong, _I, _I, _P],
     # dtype, x1, x2, w1, w2, bias, gamma, beta, out, pooled, batch, n, c4a,
@@ -107,6 +111,9 @@ def library() -> ctypes.CDLL:
     # n, c4a, c4b, co4, gather, pool, out, cap -> ints written (a query, no launch)
     lib.depgan_wgmma_plan.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_int), _I]
     lib.depgan_wgmma_plan.restype = ctypes.c_int
+    # n, c4, co4, out, cap -> ints written (P2's window, a query)
+    lib.depgan_rowblk_plan.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int), _I]
+    lib.depgan_rowblk_plan.restype = ctypes.c_int
     return lib
 
 

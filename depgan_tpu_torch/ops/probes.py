@@ -3,14 +3,18 @@
 with their plain PyTorch versions.
 
 - ``kernel_anatomy`` (P1, ``scripts/kernel_anatomy.py:108``): K1's relu conv
-  split into phases by the engine's Phase argument (``csrc/s2d_gemm.cuh``),
-  each repeated ``reps`` times in one launch: ``full``, ``no_epi`` (no bias
-  or relu), ``matmul_only`` (the products over the pre-gathered taps of
-  ``gathered_taps``), ``stage_only`` (the gather alone, which returns one
-  float32 sum of staged values per block row of the engine's tile).
+  split into phases, each repeated ``reps`` times a tile in one launch:
+  ``full``, ``no_epi`` (no bias or relu), ``matmul_only`` (the products over
+  the pre-gathered taps of ``gathered_taps``), ``stage_only`` (the A loads
+  alone, which returns one float32 sum of loaded values per tile of
+  ``stage_tile_rows`` rows). bfloat16 runs the phases on K1's wgmma
+  mainloop (``s2d_wgmma``'s PHASE argument, ``csrc/wgmma_kernels.cu``),
+  float32 on the engine's Phase argument (``csrc/s2d_gemm.cuh``).
 - ``conv3x3_rowblk`` (P2, ``scripts/rowblk_probe.py:125``): K1's relu conv
-  with a row-blocked output grid, each block's input rows staged once
-  (``csrc/window_kernels.cu``); equal to K1.
+  with the output cut into row blocks, each block's input rows staged once;
+  bfloat16 on the wgmma mainloop over a window of input rows
+  (``rowblk_wgmma``, ``csrc/wgmma_kernels.cu``), float32 in
+  ``csrc/window_kernels.cu``; equal to K1.
 - ``deint`` (P3, ``scripts/packed_tap_probe.py:109``): the column
   deinterleave (B, n, 2m, c) -> (B, n, m, 2c), by index decode
   (``reshape_idx``) or as the flat copy it is on a row-major layout
@@ -19,7 +23,9 @@ with their plain PyTorch versions.
 ``conv3x3_engine`` launches the GEMM engine's K1, K2 or K3 and
 ``conv5x5_engine`` its K7, which the wrappers no longer call in bfloat16:
 the references that the wgmma mainloop, the chains and P1, P2 equal bit for
-bit.
+bit. ``kernel_anatomy_engine`` and ``conv3x3_rowblk_window`` are P1's and
+P2's bfloat16 routes before the mainloop took them over (the engine's
+phases, the ``mma.sync`` window kernel), kept to be timed beside them.
 
 As in ``conv_s2d``: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel and counts the launch in ``conv_s2d.SHAPES`` under the
@@ -33,14 +39,19 @@ import torch
 
 from . import _cuda
 from . import conv_s2d as K
+from . import wgmma_plan as W
 
 ANATOMY_PHASES = {"full": 1, "no_epi": 2, "matmul_only": 3, "stage_only": 4}
 DEINT_KINDS = {"reshape_idx": 0, "merge": 1}
 
 
-def engine_tile_rows(co4: int) -> int:
-    """GEMM rows of the engine's block tile for a 3x3 conv with 4Co outputs
-    (``launch`` in ``csrc/s2d_gemm.cuh``): stage_only sums per such block."""
+def stage_tile_rows(co4: int, dtype: torch.dtype, n: int, c4: int) -> int:
+    """GEMM rows of the tile over which P1's stage_only sums, for a 3x3 conv
+    of 4C -> 4Co at interior side n: in bfloat16 the wgmma mainloop's bm
+    (``wgmma_plan.geometry``), in float32 the engine's block tile (``launch``
+    in ``csrc/s2d_gemm.cuh``: 256 rows where 4Co <= 64, else 128)."""
+    if dtype == torch.bfloat16:
+        return W.geometry(n, (c4,), co4)[1]
     return 256 if co4 <= 64 else 128
 
 
@@ -55,9 +66,9 @@ def gathered_taps(x_padded: torch.Tensor) -> torch.Tensor:
 def kernel_anatomy_plain(phase, x_padded, w4, bias4, a_dense=None):
     """What each phase computes: the relu conv (``full``, and
     ``matmul_only`` over ``a_dense``), the conv without bias or relu
-    (``no_epi``), or the float32 sums of the gathered taps over each block
-    row of the engine's tile (``stage_only``)."""
-    b, n, co4 = x_padded.shape[0], x_padded.shape[1] - 2, w4.shape[-1]
+    (``no_epi``), or the float32 sums of the gathered taps over each tile of
+    ``stage_tile_rows`` rows in the plane's dtype (``stage_only``)."""
+    b, n, c4, co4 = x_padded.shape[0], x_padded.shape[1] - 2, x_padded.shape[-1], w4.shape[-1]
     if phase == "full":
         return K.conv3x3_s2d_fused_plain(x_padded, w4, bias4)
     if phase == "no_epi":
@@ -65,17 +76,17 @@ def kernel_anatomy_plain(phase, x_padded, w4, bias4, a_dense=None):
     if phase == "matmul_only":
         y = torch.relu(K._matmul_taps(a_dense.float(), w4) + bias4.float())
         return K.pad_s2d(y.reshape(b, n, n, co4).to(x_padded.dtype))
-    rows = engine_tile_rows(co4)
+    rows = stage_tile_rows(co4, x_padded.dtype, n, c4)
     taps = K._taps(x_padded).double().reshape(b * n * n, -1).sum(-1)
     taps = torch.nn.functional.pad(taps, (0, -taps.shape[0] % rows))
     return taps.reshape(-1, rows).sum(-1).float()
 
 
-def kernel_anatomy(phase, x_padded, w4, bias4, reps=1, a_dense=None):
-    """One launch of the engine's ``phase``, repeated ``reps`` times inside
-    it; arguments as ``conv_s2d._conv3x3_s2d_impl`` (relu), with ``a_dense``
-    (B*n*n, 16C) in the plane's dtype for ``matmul_only``. Returns the
-    padded output plane, or for ``stage_only`` the float32 sums."""
+def _anatomy_launch(phase, x_padded, w4, bias4, reps, a_dense, engine: bool):
+    """Checks P1's arguments and runs it: the plain version on a CPU
+    tensor, else one launch of the phase on the wgmma mainloop (bfloat16,
+    counted in ``conv_s2d.SHAPES``) or the engine (float32, counted; or
+    either dtype with ``engine``, uncounted)."""
     b, n, c4 = K._check_plane("kernel_anatomy", x_padded)
     co4 = w4.shape[-1]
     K._check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
@@ -91,19 +102,48 @@ def kernel_anatomy(phase, x_padded, w4, bias4, reps=1, a_dense=None):
         return kernel_anatomy_plain(phase, x_padded, w4, bias4, a_dense)
     K._check_kernel_widths(co4, c4)
     dev, dt = x_padded.device, x_padded.dtype
+    wgmma = dt == torch.bfloat16 and not engine
+    K._require(not wgmma or co4 <= 128,
+               f"kernel_anatomy: the mainloop's phases take 4Co <= 128 in bfloat16, got {co4}")
     out = sums = None
     if phase == "stage_only":
-        sums = torch.empty(-(-b * n * n // engine_tile_rows(co4)), dtype=torch.float32,
-                           device=dev)
+        rows = stage_tile_rows(co4, dt if wgmma else torch.float32, n, c4)
+        sums = torch.empty(-(-b * n * n // rows), dtype=torch.float32, device=dev)
     else:
         out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = (ANATOMY_PHASES[phase], x_padded.data_ptr(), ptr(a_dense if dense else None),
+            w4.data_ptr(), bias4.data_ptr(), ptr(out), ptr(sums), b, n, c4, co4, reps,
+            _cuda.stream(dev))
     with torch.cuda.device(dev):
-        K._launch(f"kernel_anatomy[{phase}]", (b, n, c4, co4, reps), "depgan_s2d_gemm_probe",
-                  _cuda.DTYPE_CODES[dt], ANATOMY_PHASES[phase], x_padded.data_ptr(),
-                  ptr(a_dense if dense else None), w4.data_ptr(), bias4.data_ptr(), ptr(out),
-                  ptr(sums), b, n, c4, co4, reps, _cuda.stream(dev))
+        if engine:
+            _cuda.check(_cuda.library().depgan_s2d_gemm_probe(_cuda.DTYPE_CODES[dt], *args),
+                        "kernel_anatomy_engine")
+        elif wgmma:
+            K._launch(f"kernel_anatomy[{phase}]", (b, n, c4, co4, reps), "depgan_wgmma_probe",
+                      *args)
+        else:
+            K._launch(f"kernel_anatomy[{phase}]", (b, n, c4, co4, reps), "depgan_s2d_gemm_probe",
+                      _cuda.DTYPE_CODES[dt], *args)
     return sums if phase == "stage_only" else out
+
+
+def kernel_anatomy(phase, x_padded, w4, bias4, reps=1, a_dense=None):
+    """One launch of P1's ``phase``, each tile's phase repeated ``reps``
+    times inside it: on the wgmma mainloop in bfloat16 (4Co <= 128), on the
+    engine in float32. Arguments as ``conv_s2d._conv3x3_s2d_impl`` (relu),
+    with ``a_dense`` (B*n*n, 16C) in the plane's dtype for ``matmul_only``.
+    Returns the padded output plane, or for ``stage_only`` the float32 sums
+    of each tile of ``stage_tile_rows`` rows."""
+    return _anatomy_launch(phase, x_padded, w4, bias4, reps, a_dense, engine=False)
+
+
+def kernel_anatomy_engine(phase, x_padded, w4, bias4, reps=1, a_dense=None):
+    """P1 on the GEMM engine's Phase argument in either dtype: bfloat16's
+    route before the mainloop took it over. A reference for ``chip_smoke.py``
+    to time in turns with ``kernel_anatomy``: no path calls it, and it counts
+    no launch. stage_only sums over the engine's tiles."""
+    return _anatomy_launch(phase, x_padded, w4, bias4, reps, a_dense, engine=True)
 
 
 def conv3x3_engine(x_padded, w4, bias4, gamma4=None, beta4=None, mode="relu", x2_padded=None,
@@ -188,10 +228,10 @@ def conv3x3_rowblk_plain(x_padded, w4, bias4, n_blocks):
     return K.conv3x3_s2d_fused_plain(x_padded, w4, bias4)
 
 
-def conv3x3_rowblk(x_padded, w4, bias4, n_blocks: int):
-    """K1's relu conv, padded s2d (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co),
-    with the output cut into ``n_blocks`` blocks of (N+2)/n_blocks padded
-    rows, each staging its input rows once. ``n_blocks`` divides N+2."""
+def _rowblk_launch(x_padded, w4, bias4, n_blocks: int, window: bool):
+    """Checks P2's arguments and runs it: the plain version on a CPU tensor,
+    else the wgmma window kernel (bfloat16) or ``window_conv`` (float32),
+    counted; with ``window``, ``window_conv`` in either dtype, uncounted."""
     b, n, c4 = K._check_plane("conv3x3_rowblk", x_padded)
     co4 = w4.shape[-1]
     K._check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
@@ -202,12 +242,40 @@ def conv3x3_rowblk(x_padded, w4, bias4, n_blocks: int):
         return conv3x3_rowblk_plain(x_padded, w4, bias4, n_blocks)
     K._check_kernel_widths(co4, c4)
     dev, dt = x_padded.device, x_padded.dtype
+    wgmma = dt == torch.bfloat16 and not window
+    if wgmma:
+        W.window(n, c4, co4)  # raises for what the window kernel refuses
     out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    args = (x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(), out.data_ptr(), b, n, c4, co4,
+            n_blocks, _cuda.stream(dev))
     with torch.cuda.device(dev):
-        K._launch("conv3x3_rowblk", (b, n, c4, co4, n_blocks), "depgan_conv3x3_rowblk",
-                  _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(),
-                  out.data_ptr(), b, n, c4, co4, n_blocks, _cuda.stream(dev))
+        if window:
+            _cuda.check(_cuda.library().depgan_conv3x3_rowblk(_cuda.DTYPE_CODES[dt], *args),
+                        "conv3x3_rowblk_window")
+        elif wgmma:
+            K._launch("conv3x3_rowblk", (b, n, c4, co4, n_blocks), "depgan_conv3x3_rowblk_wgmma",
+                      *args)
+        else:
+            K._launch("conv3x3_rowblk", (b, n, c4, co4, n_blocks), "depgan_conv3x3_rowblk",
+                      _cuda.DTYPE_CODES[dt], *args)
     return out
+
+
+def conv3x3_rowblk(x_padded, w4, bias4, n_blocks: int):
+    """K1's relu conv, padded s2d (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co),
+    with the output cut into ``n_blocks`` blocks of (N+2)/n_blocks padded
+    rows an image, each staging its input rows once: the wgmma window
+    kernel in bfloat16 (4C a multiple of 64, N+2 <= 256), ``window_conv``
+    in float32. ``n_blocks`` divides N+2."""
+    return _rowblk_launch(x_padded, w4, bias4, n_blocks, window=False)
+
+
+def conv3x3_rowblk_window(x_padded, w4, bias4, n_blocks: int):
+    """P2 on ``window_conv`` (``csrc/window_kernels.cu``, ``mma.sync``) in
+    either dtype: bfloat16's route before the mainloop took it over. A
+    reference for ``chip_smoke.py`` to time in turns with
+    ``conv3x3_rowblk``: no path calls it, and it counts no launch."""
+    return _rowblk_launch(x_padded, w4, bias4, n_blocks, window=True)
 
 
 def deint_plain(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,13 @@ depth k of row m reads from the padded plane:
 
 Each operand's K is loaded in whole k-tiles of BK; the runs past K (the 5x5
 at 4C = 16: K = 144 of 192) are copies of zeros.
+
+P2 (``probes.conv3x3_rowblk`` in bfloat16) reads A from a window of input
+rows staged once a work unit (``Window`` in the header): ``window`` is its
+geometry and step plan, ``unit_rows`` its work units, and ``gather_window``
+rebuilds A by walking the units as a block does, the window held as the
+header lays it out and read at the addresses the kernel's matrix
+descriptors give.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ GATHERS = {"conv3x3": 0, "conv5x5": 2}  # the library's kGatherConv3x3, kGatherC
 POOLS = {"": 0, "pixel": 1, "s2d": 2}    # the library's PoolMode
 PAST = -1   # the channel of a run past K: its copies are zeros
 POOL_WIDTHS = (32, 64, 128, 256)  # the 4Co the pooled epilogue takes (K2)
+STAGES = 4                # the B ring's stages (at most, for P2)
+SMEM_MAX = 227 * 1024 - 256  # dynamic shared memory a block may take beside its barriers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +91,23 @@ def _boxes(gather: str, n: int, bm: int, c4s: tuple[int, ...]) -> bool:
     return (n % bm == 0 or bm % n == 0) and all(whole(c4) for c4 in c4s)
 
 
+def geometry(n: int, c4s: tuple[int, ...], co4: int,
+             gather: str = "conv3x3") -> tuple[str, int, int, int, tuple[int, int, int, int]]:
+    """(route, bm, bn, n_blocks, box) of a launch, as ``geometry()`` in the
+    header: tiles of 256 rows where at most 128 columns and the boxes allow,
+    else 128; TMA boxes when each 32-deep half is one tap group's chunk, K
+    whole k-tiles and a tile a box of the plane, else cp.async."""
+    n_blocks = -(-co4 // 256)
+    per_block = -(-co4 // n_blocks)
+    bn = -(-per_block // 64) * 64
+    bm = 2 * BM if bn <= 128 and _boxes(gather, n, 2 * BM, c4s) else BM
+    if not _boxes(gather, n, bm, c4s):
+        return ROUTES[1], bm, bn, n_blocks, (0, 0, 0, 0)
+    bx = bm if n >= bm else n
+    by = 1 if n >= bm else min(n, bm // n)
+    return ROUTES[0], bm, bn, n_blocks, (HALF, bx, by, bm // (bx * by))
+
+
 def plan(n: int, c4s: tuple[int, ...], co4: int, gather: str = "conv3x3",
          pool: str = "") -> Plan:
     """The launch plan at interior side n, input widths 4C = ``c4s`` and
@@ -101,21 +127,12 @@ def plan(n: int, c4s: tuple[int, ...], co4: int, gather: str = "conv3x3",
     if pool and (conv5 or len(c4s) != 1 or co4 not in POOL_WIDTHS or (pool == "s2d" and n % 2)):
         raise ValueError(f"the pooled epilogue takes one 3x3 operand, 4Co {POOL_WIDTHS} and an "
                          f"even n for s2d, got {gather} n {n} 4C {c4s}, 4Co {co4}")
-    n_blocks = -(-co4 // 256)
-    per_block = -(-co4 // n_blocks)
-    bn = -(-per_block // 64) * 64
-    bm = 2 * BM if bn <= 128 and _boxes(gather, n, 2 * BM, c4s) else BM
-    boxes = _boxes(gather, n, bm, c4s)
-    box = (0, 0, 0, 0)
-    if boxes:
-        bx = bm if n >= bm else n
-        by = 1 if n >= bm else min(n, bm // n)
-        box = (HALF, bx, by, bm // (bx * by))
-    run = HALF if boxes else VEC
+    route, bm, bn, n_blocks, box = geometry(n, c4s, co4, gather)
+    run = HALF if route == ROUTES[0] else VEC
     runs = tuple((o, *(chunk(c4, k0, gather) if k0 < depth(c4, gather) else (PAST, 0, 0)))
                  for o, c4 in enumerate(c4s)
                  for k0 in range(0, -(-depth(c4, gather) // BK) * BK, run))
-    return Plan(gather, ROUTES[0] if boxes else ROUTES[1], bm, bn, n_blocks, box, run, runs)
+    return Plan(gather, route, bm, bn, n_blocks, box, run, runs)
 
 
 def as_ints(p: Plan) -> list[int]:
@@ -172,4 +189,116 @@ def library_plan(n: int, c4s: tuple[int, ...], co4: int, gather: str = "conv3x3"
     if wrote < 0:
         raise ValueError(f"depgan_wgmma_plan refused n {n}, 4C {c4s}, 4Co {co4}, {gather}, "
                          f"pool {pool!r}")
+    return list(buf[:wrote])
+
+
+@dataclasses.dataclass(frozen=True)
+class Window:
+    """P2's window (``Window`` in the header): K1's tile over output rows of
+    ``wrow`` GEMM rows, a ring of ``slots`` input-row slots, each c4/8 chunks
+    of ``pitch`` pixels of 8 channels, and B through ``b_stages`` stages."""
+    bm: int        # rows of a tile: 256 where bn <= 128 and its slots fit, else 128
+    bn: int        # columns of a column block
+    n_blocks: int  # column blocks
+    wrow: int      # GEMM rows an output row takes: n rounded up to 64
+    rows: int      # output rows a tile: bm // wrow
+    pitch: int     # pixels of a slot's chunk: wrow + 2 rounded up to 8
+    slots: int     # row slots: rows + 2
+    b_stages: int  # B ring stages: up to STAGES
+    smem: int      # dynamic shared memory bytes, the 1 KB alignment included
+    steps: tuple[tuple[int, int, int], ...]  # (channel, dx, dy) of each 16-deep step, k order
+
+
+def window(n: int, c4: int, co4: int) -> Window:
+    """P2's window at interior side n, 4C = c4, 4Co = co4. Raises
+    ValueError where the kernel refuses it: 4C a multiple of 64 (a 16-deep
+    step is two 8-channel chunks of one tap group), n + 2 at most 256 (a row
+    is one TMA box), every output row inside one tile and two B stages
+    beside the window. The tile is K1's where its slots fit, else 128 rows."""
+    if n <= 0 or n + 2 > 256 or c4 <= 0 or c4 % 64 or co4 <= 0 or co4 % 8:
+        raise ValueError(f"P2's window takes 4C a multiple of 64, 4Co of 8 and n + 2 <= 256, "
+                         f"got n {n}, 4C {c4}, 4Co {co4}")
+    _, _, bn, n_blocks, _ = geometry(n, (c4,), co4)  # K1's column blocks
+    wrow = -(-n // 64) * 64
+    pitch = -(-(wrow + 2) // 8) * 8
+    for bm in (2 * BM, BM) if bn <= 128 else (BM,):  # K1's tile where its slots fit
+        rows = bm // wrow
+        fixed = 1024 + (rows + 2) * c4 // 8 * pitch * 16 + c4 // 4 * 8
+        b_stages = min(STAGES, (SMEM_MAX - fixed) // (bn * BK * 2))
+        if rows >= 1 and b_stages >= 2:
+            break
+    else:
+        raise ValueError(f"P2's window does not fit: n {n}, 4C {c4}, 4Co {co4}")
+    steps = tuple(chunk(c4, k0) for k0 in range(0, 4 * c4, 16))
+    return Window(bm, bn, n_blocks, wrow, rows, pitch, rows + 2, b_stages,
+                  fixed + b_stages * bn * BK * 2, steps)
+
+
+def window_ints(w: Window) -> list[int]:
+    """The window in the layout of the library's ``depgan_rowblk_plan``."""
+    return [w.bm, w.bn, w.n_blocks, w.wrow, w.rows, w.pitch, w.slots, w.b_stages, w.smem,
+            *(v for step in w.steps for v in step)]
+
+
+def unit_rows(n: int, units: int, s: int) -> tuple[int, int]:
+    """Interior output rows [ya, yb) of work unit s of ``units`` an image:
+    it owns padded rows [s (n+2)/units, (s+1) (n+2)/units), ring included."""
+    rb = (n + 2) // units
+    return max(s * rb - 1, 0), min((s + 1) * rb - 1, n)
+
+
+def gather_window(w: Window, x_padded: torch.Tensor, units: int) -> torch.Tensor:
+    """A (B*n*n, 16C) as P2's consumers read it: one block walks every work
+    unit, loading unit row j into slot (rows loaded so far) % slots, chunk k8
+    of a slot at k8 * pitch * 8 elements, pixel p at p * 8; each m64 tile's
+    16-deep step reads, from its output row's slot at +dy and its pixel x0
+    + dx, row i at (i // 8) * 128 + (i % 8) * 16 bytes (the descriptor's
+    stride offset) and its second 8-deep half pitch * 16 bytes on (the
+    leading offset). Slots start as NaN, and a tile's rows past its unit
+    read its last row, as the kernel does; rows no tile stores stay NaN."""
+    b, side, c4 = x_padded.shape[0], x_padded.shape[1], x_padded.shape[-1]
+    n = side - 2
+    chunks = c4 // 8
+    slot = chunks * w.pitch * 8
+    ring = torch.full((w.slots, slot), float("nan"), dtype=x_padded.dtype)
+    i, h, e = torch.meshgrid(torch.arange(64), torch.arange(2), torch.arange(8), indexing="ij")
+    read = ((i // 8 * 128 + i % 8 * 16 + h * w.pitch * 16) // 2 + e).reshape(64, 16)
+    a = torch.full((b, n, n, 4 * c4), float("nan"), dtype=x_padded.dtype)
+    gi = 0
+    for u in range(b * units):
+        bb, (ya, yb) = u // units, unit_rows(n, units, u % units)
+        rows_u = yb - ya
+        if rows_u <= 0:
+            continue
+        loaded = 0
+        for t0 in range(0, rows_u, w.rows):
+            rg = min(w.rows, rows_u - t0)
+            for j in range(loaded, min(t0 + w.rows + 2, rows_u + 2)):  # each input row once
+                row = x_padded[bb, ya + j].reshape(side, chunks, 8).transpose(0, 1)
+                ring[(gi + j) % w.slots].view(chunks, w.pitch, 8)[:, :side] = row
+                loaded = j + 1
+            for i64 in range(0, w.bm, 64):
+                r, x0 = divmod(i64, w.wrow)
+                s0 = gi + t0 + min(r, rg - 1)
+                cols = [ring[(s0 + dy) % w.slots][read + (c // 8 * w.pitch + x0 + dx) * 8]
+                        for c, dx, dy in w.steps]
+                live = min(64, n - x0) if r < rg else 0
+                if live > 0:
+                    a[bb, ya + t0 + r, x0:x0 + live] = torch.cat(cols, dim=1)[:live]
+        gi += rows_u + 2
+    return a.reshape(b * n * n, 4 * c4)
+
+
+def library_window(n: int, c4: int, co4: int) -> list[int]:
+    """The built library's own window (``depgan_rowblk_plan``), in the
+    layout of ``window_ints``: needs the library."""
+    import ctypes
+
+    from . import _cuda
+
+    cap = 9 + 3 * c4 // 4
+    buf = (ctypes.c_int * cap)()
+    wrote = _cuda.library().depgan_rowblk_plan(n, c4, co4, buf, cap)
+    if wrote < 0:
+        raise ValueError(f"depgan_rowblk_plan refused n {n}, 4C {c4}, 4Co {co4}")
     return list(buf[:wrote])

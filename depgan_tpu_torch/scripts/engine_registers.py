@@ -1,8 +1,9 @@
 """What ptxas allocated for the GEMM engine's kernels: registers, stack
 frame and spill bytes of every ``s2d_gemm`` instantiation (dtype, N tile,
 phase), from ``nvcc -Xptxas -v``; ``wgmma_figures`` reads the same for the
-wgmma mainloop of K1, K2, K3 and K7 (``s2d_wgmma``: N tile, m64 tiles a
-consumer warpgroup, K2's pooled epilogue or not).
+wgmma mainloop of K1, K2, K3, K7 and P1 (``s2d_wgmma``: N tile, m64 tiles a
+consumer warpgroup, K2's pooled epilogue or not, production or a P1 phase)
+and for P2's window kernel on it (``rowblk_wgmma``: N tile, m64 tiles).
 
 With no argument it reads the report kept beside the port's built library
 (``ops/_cuda.py``). Given source directories (another checkout's
@@ -22,7 +23,8 @@ import sys
 from pathlib import Path
 
 _NAME = re.compile(r"8s2d_gemmI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?E")
-_WGMMA = re.compile(r"9s2d_wgmmaILi(\d+)ELi(\d+)ELb([01])EE")
+_WGMMA = re.compile(r"9s2d_wgmmaILi(\d+)ELi(\d+)ELb([01])ELi(\d+)EE")
+_ROWBLK = re.compile(r"12rowblk_wgmmaILi(\d+)ELi(\d+)EE")
 PHASE_NAMES = {0: "production", 1: "probe full", 2: "probe no_epi", 3: "probe matmul_only",
                4: "probe stage_only"}
 
@@ -40,16 +42,26 @@ def engine_figures(log: str) -> dict[tuple, dict[str, int]]:
     return dict(sorted(rows.items()))
 
 
-def wgmma_figures(log: str) -> dict[tuple, dict[str, int]]:
-    """(N tile, m64 tiles a consumer warpgroup, pooled) -> registers, stack,
-    spill stores and loads of each ``s2d_wgmma`` kernel in a ptxas ``-v``
-    report."""
+def wgmma_name(bn: int, mt: int, pool: bool | None = None, phase: int = 0) -> str:
+    """An instantiation's name: ``s2d_wgmma<BN, MT, POOL, phase>``, or
+    ``rowblk_wgmma<BN, MT>`` where ``pool`` is None."""
+    if pool is None:
+        return f"rowblk_wgmma<{bn}, {mt}>"
+    return f"s2d_wgmma<{bn}, {mt}, {str(pool).lower()}, {PHASE_NAMES[phase]}>"
+
+
+def wgmma_figures(log: str) -> dict[str, dict[str, int]]:
+    """``wgmma_name`` -> registers, stack, spill stores and loads of each
+    ``s2d_wgmma`` and ``rowblk_wgmma`` kernel in a ptxas ``-v`` report."""
     from depgan_tpu_torch.ops._cuda import ptxas_figures
 
     rows = {}
     for name, fig in ptxas_figures(log).items():
         if m := _WGMMA.search(name):
-            rows[int(m.group(1)), int(m.group(2)), m.group(3) == "1"] = fig
+            rows[wgmma_name(int(m.group(1)), int(m.group(2)), m.group(3) == "1",
+                            int(m.group(4)))] = fig
+        elif m := _ROWBLK.search(name):
+            rows[wgmma_name(int(m.group(1)), int(m.group(2)))] = fig
     return dict(sorted(rows.items()))
 
 

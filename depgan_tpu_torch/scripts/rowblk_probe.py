@@ -2,10 +2,12 @@
 
 Counterpart of the JAX package's ``scripts/rowblk_probe.py``: at the
 generator's level-1 and level-2 relu-conv shapes, ``conv3x3_rowblk`` with
-the JAX probe's block counts, each block staging its input rows once, first
-checked against K1 on the same inputs (the same products in the same order:
-bit for bit), then timed beside K1. Device ms over launches captured in a
-CUDA graph; bfloat16.
+the JAX probe's block counts, each work unit staging its input rows once (a
+window of row slots on K1's wgmma mainloop), first checked against K1 on the
+same inputs (the same products in the same order: bit for bit), then timed
+beside K1 and beside its route before the mainloop (``window_conv``,
+``conv3x3_rowblk_window``). Device ms over launches captured in a CUDA
+graph; bfloat16.
 
     python -m depgan_tpu_torch.scripts.rowblk_probe [batch]    # default 64
 """
@@ -23,7 +25,7 @@ SHAPES = (("L1 conv (n=128, 4C=128->128)", 128, 128, 128, (5, 10)),
 
 def main(argv=None) -> dict:
     from depgan_tpu_torch.ops import conv_s2d as K
-    from depgan_tpu_torch.ops.probes import conv3x3_rowblk
+    from depgan_tpu_torch.ops.probes import conv3x3_rowblk, conv3x3_rowblk_window
     from depgan_tpu_torch.scripts import cuda_device
     from depgan_tpu_torch.utils.profiling import cuda_graph_ms
 
@@ -45,10 +47,12 @@ def main(argv=None) -> dict:
         for nb in blocks:
             err = float((conv3x3_rowblk(x, w4, bias, nb).float() - ref.float()).abs().max())
             t = cuda_graph_ms(lambda nb=nb: conv3x3_rowblk(x, w4, bias, nb), iters=5)
+            t_old = cuda_graph_ms(lambda nb=nb: conv3x3_rowblk_window(x, w4, bias, nb), iters=5)
             same = "bit-identical to K1" if err == 0 else f"max abs {err:.3e} from K1"
             print(f"  rowblk nb={nb} ({(n + 2) // nb} rows/blk): {t:8.4f} ms "
-                  f"({t_ref / t:5.3f}x K1's speed)  [{same}]")
-            results[label, nb] = {"ms": t, "k1_ms": t_ref, "max_abs_vs_k1": err}
+                  f"({t_ref / t:5.3f}x K1's speed; window_conv {t_old:8.4f} ms)  [{same}]")
+            results[label, nb] = {"ms": t, "k1_ms": t_ref, "old_ms": t_old,
+                                  "max_abs_vs_k1": err}
     return results
 
 

@@ -660,43 +660,102 @@ def _anatomy_inputs(dtype, device, b=2, n=12, c4=64, co4=96, seed=4):
 def test_kernel_anatomy_phases(cuda, dtype, co4):
     """P1: full (reps 1 and 3) and matmul_only equal K1 bit for bit, no_epi
     is the conv without bias or relu within K1's tolerances, and
-    stage_only's sums are the gathered taps' sums per block row (float32
-    sums of up to 256 x 256 values: within 1e-5 of their absolute sum)."""
+    stage_only's sums are the gathered taps' sums per tile (float32 sums of
+    up to 256 x 256 values: within 1e-5 of their absolute sum). bfloat16
+    runs the wgmma mainloop, at n 8 (TMA boxes of 256 rows), 12 (cp.async)
+    and 16; float32 the engine at n 12."""
     dt = getattr(torch, dtype)
-    x, w4, bias = _anatomy_inputs(dt, cuda, co4=co4)
-    k1 = K._conv3x3_s2d_impl(x, w4, bias)
-    a = probes.gathered_taps(x)
-    for phase, reps in (("full", 1), ("full", 3), ("matmul_only", 1), ("matmul_only", 2)):
-        torch.testing.assert_close(probes.kernel_anatomy(phase, x, w4, bias, reps, a), k1,
-                                   atol=0, rtol=0)
-    no_epi = probes.kernel_anatomy("no_epi", x, w4, bias, 2)
-    torch.testing.assert_close(no_epi.float(),
-                               probes.kernel_anatomy_plain("no_epi", x, w4, bias).float(),
-                               atol=TOL[dt], rtol=TOL[dt])
-    assert _ring_zero(no_epi)
-    sums = probes.kernel_anatomy("stage_only", x, w4, bias, 2)
-    ref = probes.kernel_anatomy_plain("stage_only", x, w4, bias)
-    rows = probes.engine_tile_rows(co4)
-    scale = K._taps(x).abs().double().reshape(-1, 4 * x.shape[-1]).sum(-1)
-    scale = torch.nn.functional.pad(scale, (0, -scale.shape[0] % rows)).reshape(-1, rows).sum(-1)
-    assert sums.shape == ref.shape
-    assert bool(((sums.double() - ref.double()).abs() <= 1e-5 * scale).all())
+    for n, c4 in ((8, 128), (12, 64), (16, 128)) if dt == torch.bfloat16 else ((12, 64),):
+        x, w4, bias = _anatomy_inputs(dt, cuda, n=n, c4=c4, co4=co4)
+        k1 = K._conv3x3_s2d_impl(x, w4, bias)
+        a = probes.gathered_taps(x)
+        for phase, reps in (("full", 1), ("full", 3), ("matmul_only", 1), ("matmul_only", 2)):
+            before = K.launches()[f"kernel_anatomy[{phase}]"]
+            torch.testing.assert_close(probes.kernel_anatomy(phase, x, w4, bias, reps, a), k1,
+                                       atol=0, rtol=0)
+            assert K.launches()[f"kernel_anatomy[{phase}]"] == before + 1
+        no_epi = probes.kernel_anatomy("no_epi", x, w4, bias, 2)
+        torch.testing.assert_close(no_epi.float(),
+                                   probes.kernel_anatomy_plain("no_epi", x, w4, bias).float(),
+                                   atol=TOL[dt], rtol=TOL[dt])
+        assert _ring_zero(no_epi)
+        sums = probes.kernel_anatomy("stage_only", x, w4, bias, 2)
+        ref = probes.kernel_anatomy_plain("stage_only", x, w4, bias)
+        rows = probes.stage_tile_rows(co4, dt, n, c4)
+        scale = K._taps(x).abs().double().reshape(-1, 4 * x.shape[-1]).sum(-1)
+        scale = torch.nn.functional.pad(scale, (0, -scale.shape[0] % rows)).reshape(-1, rows)
+        assert sums.shape == ref.shape
+        assert bool(((sums.double() - ref.double()).abs() <= 1e-5 * scale.sum(-1)).all())
+
+
+# (b, n, 4C, 4Co, blocks) of each float32 case -> bfloat16's: the window
+# takes 4C in multiples of 64.
+_ROWBLK_BF16_SHAPE = {(2, 10, 32, 64, 3): (2, 10, 64, 64, 3),
+                      (2, 10, 32, 64, 12): (2, 10, 64, 64, 12),
+                      (2, 16, 64, 136, 6): (2, 16, 64, 136, 6),
+                      (1, 22, 32, 32, 1): (1, 22, 128, 32, 1)}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 10, 32, 64, 3), (2, 10, 32, 64, 12), (2, 16, 64, 136, 6),
-                                   (1, 22, 32, 32, 1)])
+@pytest.mark.parametrize("shape", list(_ROWBLK_BF16_SHAPE))
 def test_conv3x3_rowblk_equals_k1(cuda, dtype, shape):
-    """P2 against K1 on the same inputs, bit for bit, ring included."""
+    """P2 against K1 on the same inputs, bit for bit, ring included. In
+    bfloat16 the old route (window_conv) runs the float32 case's shape and
+    the window its shape at 4C a multiple of 64."""
     b, n, c4, co4, blocks = shape
     dt = getattr(torch, dtype)
+    if dt == torch.bfloat16:
+        x, w4, bias = _anatomy_inputs(dt, cuda, b=b, n=n, c4=c4, co4=co4)
+        assert torch.equal(probes.conv3x3_rowblk_window(x, w4, bias, blocks),
+                           K._conv3x3_s2d_impl(x, w4, bias))
+        b, n, c4, co4, blocks = _ROWBLK_BF16_SHAPE[shape]
     x, w4, bias = _anatomy_inputs(dt, cuda, b=b, n=n, c4=c4, co4=co4)
     before = K.launches()["conv3x3_rowblk"]
     out = probes.conv3x3_rowblk(x, w4, bias, blocks)
     assert K.launches()["conv3x3_rowblk"] == before + 1
     torch.testing.assert_close(out, K._conv3x3_s2d_impl(x, w4, bias), atol=0, rtol=0)
     assert _ring_zero(out)
+
+
+@pytest.mark.gpu
+def test_conv3x3_rowblk_wgmma_every_block_count(cuda):
+    """bf16 P2 on the window equals K1 bit for bit at n 8, 12 and 16 with
+    every block count that divides n+2 (units of ring rows alone, masked
+    tail tiles), at two column blocks (4Co 384), at two B stages (4C 256),
+    at a 128-row tile of 64 columns and at both production shapes; so does
+    the old route, window_conv, which counts no launch."""
+    cases = [(n, c4, co4, nb) for n, c4, co4 in ((8, 64, 64), (12, 128, 96), (16, 64, 256),
+                                                  (16, 64, 384), (16, 256, 256), (16, 256, 64))
+             for nb in range(1, n + 3) if (n + 2) % nb == 0]
+    cases += [(128, 128, 128, 5), (128, 128, 128, 10), (64, 256, 256, 3), (64, 256, 256, 6)]
+    for n, c4, co4, nb in cases:
+        x, w4, bias = _anatomy_inputs(torch.bfloat16, cuda, b=2, n=n, c4=c4, co4=co4)
+        k1 = K._conv3x3_s2d_impl(x, w4, bias)
+        before = K.launches()["conv3x3_rowblk"]
+        out = probes.conv3x3_rowblk(x, w4, bias, nb)
+        old = probes.conv3x3_rowblk_window(x, w4, bias, nb)
+        torch.cuda.synchronize()
+        assert K.launches()["conv3x3_rowblk"] == before + 1
+        diff = float((out.float() - k1.float()).abs().max())
+        print(f"P2 n {n} {c4}->{co4} nb {nb}: max abs {diff:.3e} from K1")
+        assert diff == 0.0 and torch.equal(old, k1) and _ring_zero(out)
+
+
+@pytest.mark.gpu
+def test_probe_wgmma_refusals_and_window_plan(cuda):
+    """bf16 P2 refuses 4C not a multiple of 64 and P1 4Co above 128, never
+    falling back; the library's P2 window equals ``ops/wgmma_plan.py``."""
+    x, w4, bias = _anatomy_inputs(torch.bfloat16, cuda, n=10, c4=32, co4=64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        probes.conv3x3_rowblk(x, w4, bias, 3)
+    x, w4, bias = _anatomy_inputs(torch.bfloat16, cuda, n=10, c4=64, co4=256)
+    with pytest.raises(ValueError, match="4Co <= 128"):
+        probes.kernel_anatomy("full", x, w4, bias)
+    for n, c4, co4 in ((8, 64, 64), (12, 128, 96), (16, 256, 384), (64, 256, 256),
+                       (128, 128, 128)):
+        assert wgmma_plan.library_window(n, c4, co4) == wgmma_plan.window_ints(
+            wgmma_plan.window(n, c4, co4))
 
 
 @pytest.mark.gpu

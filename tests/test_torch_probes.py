@@ -93,7 +93,7 @@ def test_anatomy_stage_only_sums_the_gathered_taps():
                 for q in range(2):
                     src = 3 - (2 * p + q)
                     per_row += x[:, a + p:a + p + n, b + q:b + q + n, src * c:(src + 1) * c].sum(-1)
-    rows = probes.engine_tile_rows(co4)
+    rows = probes.stage_tile_rows(co4, torch.float32, n, c4)
     per_row = np.pad(per_row.reshape(-1), (0, -per_row.size % rows))
     sums = probes.kernel_anatomy("stage_only", *map(torch.from_numpy, (x, w4, bias)))
     np.testing.assert_allclose(sums.numpy(), per_row.reshape(-1, rows).sum(-1), rtol=1e-5,
