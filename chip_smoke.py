@@ -8,11 +8,12 @@
    the registers, stack frame and spill bytes that ptxas gave every
    instantiation of the GEMM engine (``s2d_gemm``), the production ones
    held to ENGINE_FIGURES, and of the bf16 wgmma mainloop of K1, K2, K3,
-   K7 and P1's phases (``s2d_wgmma``) and of P2's window kernel on it
-   (``rowblk_wgmma``), held to WGMMA_FIGURES; the library's own A-load
-   plan of every K1, K2, K3 and K7 shape, with the route it takes (TMA
-   boxes or cp.async), and P2's window at its shapes, held to
-   ``ops/wgmma_plan.py``.
+   K7 and P1's phases (``s2d_wgmma``), of P2's window kernel on it
+   (``rowblk_wgmma``), of bf16 K11's window (``conv5_wgmma``) and of bf16
+   K10's chain (``chain_wgmma``), held to WGMMA_FIGURES; the library's own
+   A-load plan of every K1, K2, K3 and K7 shape, with the route it takes
+   (TMA boxes or cp.async), P2's window, K11's window and K10's plan at
+   their shapes, held to ``ops/wgmma_plan.py``.
 2. Kernels: each kernel against its plain PyTorch version at every shape of
    the serving forward and the training superstep (256x256 slices,
    first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
@@ -23,13 +24,14 @@
    bf16 rounding of a value within float32 error of a rounding tie can
    move: ``head_rounding_slack``), and the chains against the sequential
    kernels on the same inputs (K1 or K3 -> K1 film -> K1 or K2), whose
-   largest difference is printed (0: bit-identical). K11 (``CONV5_PACKED``)
-   at the critic's five packed shapes, with its difference from K7 on the
-   same inputs; the probes: P1's four phases at a check shape (``full`` and
+   largest difference is printed (0: bit-identical; K10 must be 0). K11
+   (``CONV5_PACKED``) at the critic's five packed shapes, equal to K7 on the
+   same inputs bit for bit; the probes: P1's four phases at a check shape (``full`` and
    ``matmul_only`` equal to K1 bit for bit, ``stage_only``'s sums within
    1e-5 of their absolute sum), P2 at the level-1/2 shapes with each block
    count (bfloat16, equal to K1 bit for bit), P3 equal to its plain version;
-   bf16 P1 and P2 run the wgmma mainloop.
+   bf16 P1 and P2 run the wgmma mainloop, bf16 K11 the wgmma window and
+   bf16 K10 the wgmma chain.
    In bfloat16, K1, K2 (both outputs), K3 and K7, which run the wgmma
    mainloop, equal the engine's kernel on the same inputs bit for bit.
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
@@ -87,11 +89,12 @@
    K2, K3 and K7 in turns with the engine's kernel at the same shape
    (engine, wgmma, wgmma, engine); the serving forward's kernels at batch 42
    and ms per
-   served subject; K9 and K10 at the serving options' shapes per forward,
-   and K12 at four site shapes, at batch 42. ``gan_step_bench`` with
-   ``CONV5_PACKED`` beside the default in turns (default, packed, packed,
-   default) with exact launch counts, and K11's launches replayed shape by
-   shape beside K7's at the same shapes.
+   served subject; K9 and K10 at the serving options' shapes per forward
+   (bf16 K10 in turns with its old route, ``s2d_chain``), and K12 at four
+   site shapes, at batch 42. ``gan_step_bench`` with ``CONV5_PACKED``
+   beside the default in turns (default, packed, packed, default) with
+   exact launch counts, and K11's launches replayed shape by shape beside
+   K7's at the same shapes, in turns with its old route (``window_conv``).
 10. Probes, for information: each probe's ``main`` at the JAX scripts'
    default shapes (``depgan_tpu_torch/scripts``: P1 and P2 at batch 64, P3
    at batch 256), with their launch counts, and each probe kernel timed
@@ -173,6 +176,8 @@ PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores (K8's arithmetic)
 PALLAS = "depgan_tpu/ops/conv_s2d_pallas.py"
 GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d_gemm.cuh
 WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_kernels.cu"  # bf16 K1, K2, K3 and K7
+CONV5_WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_conv5.cu"  # bf16 K11
+CHAIN_WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_chain.cu"  # bf16 K10
 POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
 FILM_SRC = "depgan_tpu_torch/csrc/film_kernels.cu"
 CHAIN_SRC = "depgan_tpu_torch/csrc/chain_kernels.cu"
@@ -191,9 +196,9 @@ KERNELS = {
     "conv5x5_s2d_fused": (WGMMA_SRC, f"{PALLAS}:1918"),
     "film_residual": (FILM_SRC, "depgan_tpu/ops/film_pallas.py:58"),
     "conv3x3_s2d_fused_head": (GEMM_SRC, f"{PALLAS}:1145"),
-    "conv3x3_s2d_chain3": (CHAIN_SRC, f"{PALLAS}:1741"),
+    "conv3x3_s2d_chain3": (CHAIN_WGMMA_SRC, f"{PALLAS}:1741"),
     "conv3x3_s2d_chain2": (CHAIN_SRC, f"{PALLAS}:1511"),
-    "conv5x5_s2d_fused[packed]": (WINDOW_SRC, f"{PALLAS}:1940"),
+    "conv5x5_s2d_fused[packed]": (CONV5_WGMMA_SRC, f"{PALLAS}:1940"),
     "kernel_anatomy[full]": (WGMMA_SRC, "scripts/kernel_anatomy.py:80"),
     "kernel_anatomy[no_epi]": (WGMMA_SRC, "scripts/kernel_anatomy.py:80"),
     "kernel_anatomy[matmul_only]": (WGMMA_SRC, "scripts/kernel_anatomy.py:90"),
@@ -224,7 +229,10 @@ ENGINE_FIGURES = {
 # (64, 2) and (128, 2)); K2 runs the pooled (128, 2) and (256, 1) at its
 # production shapes and (64, 1 or 2) at 4Co 32 or 64. P1 takes 4Co <= 128;
 # P2 runs (128, 2) at level 1 and (256, 1) at level 2 (MT 1 at BN <= 128
-# where six slots do not fit).
+# where six slots do not fit). K11's window (conv5_wgmma: N tile, m64 tiles)
+# runs (64, 2) and (128, 2) at the critic's shapes, (192, 1) and (256, 1)
+# above 4Co 128; K10's chain (chain_wgmma: N tile, m64 tiles, pool) runs
+# (128, 2) at level 1 and (256, 1) at level 2, pooled at m1 and m2.
 WGMMA_FIGURES = {
     **{(bn, mt, pool, 0): (168, 0, 0, 0)
        for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))
@@ -233,6 +241,10 @@ WGMMA_FIGURES = {
        for bn in (64, 128) for mt in (1, 2) for phase in (1, 2, 3, 4)},
     **{(bn, mt, None, 0): (168, 0, 0, 0)
        for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))},
+    **{(bn, mt, None, 0, "conv5_wgmma"): (168, 0, 0, 0)
+       for bn, mt in ((64, 2), (128, 2), (192, 1), (256, 1))},
+    **{(bn, mt, pool, 0, "chain_wgmma"): (168, 0, 0, 0)
+       for bn, mt in ((128, 2), (256, 1)) for pool in (False, True)},
 }
 WGMMA_KERNELS = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
                  "conv3x3_s2d_fused2", "conv5x5_s2d_fused")
@@ -388,7 +400,8 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
 
     # K1, K2, K3 and K7 also carry the engine's kernel on the same inputs
     # (``engine``): what they launched in bfloat16 before the wgmma mainloop;
-    # bf16 P1 and P2 their routes before it (``old``), timed, not compared.
+    # bf16 P1, P2, K10 and K11 their routes before it (``old``), timed, not
+    # compared.
 
     case = {"padded": (True,), "flops": 0.0, "peak": PEAK_FLOPS, "library": None}
     if name in ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool"):
@@ -470,6 +483,8 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         case["kernel"] = lambda: K._conv5_impl(*args, mode=mode)
         if name == "conv5x5_s2d_fused[packed]":
             case["k7"], case["kernel"] = case["kernel"], packed(case["kernel"])
+            if dtype == torch.bfloat16:  # window_conv, timed in turns with the wgmma window
+                case["old"] = lambda: P.conv5x5_packed_mma_sync(*args, mode=mode)
         else:
             case["engine"] = lambda: P.conv5x5_engine(*args, mode=mode)
         case["plain"] = lambda: K.conv5x5_s2d_fused_plain(*args, mode=mode)
@@ -515,6 +530,9 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
             case["kernel"] = lambda: K.conv3x3_s2d_chain3(*args, x2_padded=x2, w1b4=w1b,
                                                           pool=pool)
             case["plain"] = lambda: K.conv3x3_s2d_chain3_plain(*args, x2, w1b, pool)
+            if dtype == torch.bfloat16:  # s2d_chain, timed in turns with the wgmma chain
+                case["old"] = lambda: P.conv3x3_chain3_wmma(*args, x2_padded=x2, w1b4=w1b,
+                                                            pool=pool)
 
             def sequential():  # K1 or K3 -> K1 film -> K2 or K1
                 h = (K._conv3x3_s2d_impl(x, w1a, b1) if x2 is None
@@ -656,7 +674,7 @@ def check_kernels() -> dict[str, float]:
     version computed in float32 and rounded once. A case's own ``limit``
     replaces the tolerance (P3: exact; P1 stage_only: 1e-5 of the absolute
     sum); P1's full and matmul_only and P2 must equal K1 on the same inputs
-    bit for bit, and K11's difference from K7 is printed. In bfloat16, K1,
+    bit for bit, and K11 K7. In bfloat16, K1,
     K2 (both outputs), K3 and K7 must equal the engine's kernel on the same
     inputs bit for bit: the wgmma mainloop sums in the engine's order."""
     worst: dict[str, float] = {}
@@ -724,20 +742,15 @@ def against_kernel(name: str, label: str, dtype, out: tuple, case: dict,
     """A kernel's outputs against the kernel that computes the same function
     on the same inputs in the same order (K7 for K11, K1 for P1 and P2, the
     engine's kernel for bf16 K1, K2, K3 and K7): the largest abs difference,
-    recorded in KERNEL_DIFF. P1 and P2 must equal K1, and the wgmma kernels
-    the engine (K2 both its outputs), bit for bit; K11 is held to the plain
-    check's tolerance from K7 and its difference printed."""
+    recorded in KERNEL_DIFF. Each must be 0 (K2 both its outputs): P1 and P2
+    equal K1, K11 (the wgmma window in bf16, window_conv in float32) K7, and
+    the wgmma kernels the engine, bit for bit."""
     ref = case[ref_kernel]()
     ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
     diff = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
     what = {"k1": "K1", "k7": "K7", "engine": "the engine"}[ref_kernel]
-    if ref_kernel != "k7":
-        check(diff == 0.0, f"{name} {label} {dtype}: {diff:.3e} from {what}, not bit-identical")
-    else:
-        tol = 1e-4 if dtype == torch.float32 else 1e-2
-        check(all(bool(((o.float() - r.float()).abs() <= tol + tol * r.float().abs()).all())
-                  for o, r in zip(out, ref)), f"{name} {label} {dtype}: {diff:.3e} from K7")
+    check(diff == 0.0, f"{name} {label} {dtype}: {diff:.3e} from {what}, not bit-identical")
     KERNEL_DIFF[name] = max(KERNEL_DIFF.get(name, 0.0), diff)
     return f"bit-identical to {what}" if diff == 0 else f"max abs {diff:.3e} from {what}"
 
@@ -746,13 +759,17 @@ def against_sequential(name: str, label: str, dtype, out: tuple, sequential) -> 
     """A chain's outputs against the sequential kernels' on the same
     inputs: the largest abs difference, recorded in SEQUENTIAL_DIFF. The
     chain sums each product in the sequential kernels' order and rounds
-    where they store, so the two agree bit for bit; a difference (at most
-    the plain check's tolerance) would come from the tensor cores' order
-    inside a 16-deep product."""
+    where they store, so the two agree bit for bit: K10 (the wgmma chain in
+    bf16, s2d_chain in float32) is held to 0; K12 to the plain check's
+    tolerance, a difference coming from the tensor cores' order inside a
+    16-deep product."""
     ref = sequential()
     ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
     diff = max(float((o.float() - r.float()).abs().max()) for o, r in zip(out, ref))
+    if name == "conv3x3_s2d_chain3":
+        check(diff == 0.0, f"{name} {label} {dtype}: {diff:.3e} from the sequential kernels, "
+                           f"not bit-identical")
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     for o, r in zip(out, ref):
         check(bool(((o.float() - r.float()).abs() <= tol + tol * r.float().abs()).all()),
@@ -775,7 +792,7 @@ def time_case(name: str, problem: tuple, dtype, seed: int) -> dict:
     K2, K3 and K7 also time the engine's kernel on the same copies, in turns
     with the wgmma mainloop (engine, kernel, kernel, engine): ``ms`` and
     ``engine_ms`` are the faster of each pair, ``turns_ms`` all four; bf16
-    P1 and P2 so their old routes (``old_ms``)."""
+    P1, P2, K10 and K11 so their old routes (``old_ms``)."""
     from depgan_tpu_torch.utils.profiling import cuda_graph_ms
 
     first = make_case(name, problem, dtype, seed)
@@ -1583,13 +1600,14 @@ def profile_once(fn, what: str, unprofiled_ms: float) -> None:
 
 def check_engine_build(_cuda) -> None:
     """Phase 1's build check: what ptxas gave every instantiation of the
-    engine (``s2d_gemm``), of the wgmma mainloop (``s2d_wgmma``, P2's
-    ``rowblk_wgmma``) and of the window kernels, from the report kept beside
-    the library; the production engine held to ENGINE_FIGURES and the
-    mainloop to WGMMA_FIGURES. Then the library's own load plan of every K1,
-    K2, K3 and K7 shape of the serving forward and the superstep, with the
-    A-load route each takes, and P2's window at its shapes, held to
-    ``ops/wgmma_plan.py``."""
+    engine (``s2d_gemm``), of the wgmma kernels (``s2d_wgmma``, P2's
+    ``rowblk_wgmma``, K11's ``conv5_wgmma``, K10's ``chain_wgmma``) and of
+    the window kernels, from the report kept beside the library; the
+    production engine held to ENGINE_FIGURES and the wgmma kernels to
+    WGMMA_FIGURES. Then the library's own load plan of every K1, K2, K3 and
+    K7 shape of the serving forward and the superstep, with the A-load route
+    each takes, P2's window, K11's window and K10's plan at their shapes,
+    held to ``ops/wgmma_plan.py``."""
     from depgan_tpu_torch.ops import wgmma_plan
     from depgan_tpu_torch.scripts import engine_registers
 
@@ -1635,6 +1653,28 @@ def check_engine_build(_cuda) -> None:
               f"{name} {label}: the library's wgmma plan differs from ops/wgmma_plan.py")
         print(f"build: wgmma plan {name} [{label}]: route {plan.route}, tile {plan.bm} x "
               f"{plan.bn}, {plan.n_blocks} column block(s), A box {plan.box}")
+    for _, label, (n, c4, co4, _) in PACKED_CASES:
+        win = wgmma_plan.conv5_window(n, c4, co4)
+        check(wgmma_plan.library_conv5_window(n, c4, co4) == wgmma_plan.conv5_window_ints(win),
+              f"K11 {label}: the library's window differs from ops/wgmma_plan.py")
+        print(f"build: K11 window [{label}]: tile {win.bm} x {win.bn}, {win.rows} output row(s) "
+              f"a tile, {win.w_stages} windows of {win.win_bytes} bytes, {win.b_stages} B "
+              f"stages{' (all of B, kept)' if win.resident else ''}, {win.smem} bytes of "
+              f"shared memory")
+    for name, label, problem in OPTION_CASES:
+        if name != "conv3x3_s2d_chain3":
+            continue
+        n, c4a, c4b, c4m, c4o, pool = problem
+        c4s = (c4a, c4b) if c4b else (c4a,)
+        plan = wgmma_plan.chain_plan(n, c4s, c4m, c4o, pool)
+        check(wgmma_plan.library_chain_plan(n, c4s, c4m, c4o, pool) == wgmma_plan.chain_ints(plan),
+              f"K10 {label}: the library's plan differs from ops/wgmma_plan.py")
+        rows = sum(plan.passes) * wgmma_plan.BM * plan.mt
+        print(f"build: K10 plan [{label}]: route {plan.route}, T {plan.tile}, pitch {plan.pitch}, "
+              f"passes {plan.passes}, {rows} GEMM rows a tile for {plan.tile ** 2} outputs "
+              f"({rows / (3 * plan.tile ** 2):.2f}x the sequential kernels'), regions of "
+              f"{plan.region} bytes, {plan.stages} ring stages, {plan.smem} bytes of shared "
+              f"memory")
     for n, c4, co4 in sorted({problem[:3] for name, _, problem in PROBE_CASES
                               if name == "conv3x3_rowblk"}):
         win = wgmma_plan.window(n, c4, co4)
@@ -1804,9 +1844,11 @@ def main() -> int:
                              f"superstep CONV5_PACKED batch {BATCH_TRAIN}")
     k7_same = sum(count * SHAPE_TIMES["conv5x5_s2d_fused", problem]["ms"]
                   for (_, problem), count in packed_shapes.items())
-    k11 = training_packed["conv5x5_s2d_fused[packed]"]["ms"]
-    print(f"time K11 per superstep on {smi}: {k11:.3f} ms over {sum(packed_shapes.values())} "
-          f"launches, K7 at the same shapes and counts {k7_same:.3f} ms")
+    k11 = training_packed["conv5x5_s2d_fused[packed]"]
+    print(f"time K11 per superstep on {smi}: {k11['ms']:.3f} ms over "
+          f"{sum(packed_shapes.values())} launches (old route window_conv in turns "
+          f"{k11.get('old_ms', float('nan')):.3f} ms), K7 at the same shapes and counts "
+          f"{k7_same:.3f} ms, bound {k11['bound_ms']:.3f} ms")
     serving_shapes = {}
     for name, label, problem in SERVING_CASES:
         serving_shapes[name, (BATCH_SERVE, *problem)] = (
@@ -1865,7 +1907,9 @@ def main() -> int:
         elif name == "conv3x3_s2d_chain2":
             timing, unit = per_option[name], "4 launches at the generator's site shapes"
         elif name == "conv5x5_s2d_fused[packed]":
-            timing, unit = training_packed[name], "per superstep with CONV5_PACKED"
+            timing = training_packed[name]
+            unit = ("per superstep with CONV5_PACKED, bf16 on the wgmma window; old_ms: "
+                    "window_conv")
         elif name.startswith("kernel_anatomy["):
             timing = probe_timing[name]
             unit = (f"one launch, reps 1, batch {PROBE_BATCH['kernel_anatomy']}, n 128, 4C = 4Co "
@@ -1881,6 +1925,8 @@ def main() -> int:
                     f"{PROBE_BATCH['packed_tap_probe']}")
         elif name in per_option:
             timing, unit = per_option[name], "per serving forward with the option"
+            if name == "conv3x3_s2d_chain3":
+                unit += ", bf16 on the wgmma chain; old_ms: s2d_chain"
         elif name in training:
             timing, unit = training[name], "per superstep"
         else:
@@ -1890,7 +1936,8 @@ def main() -> int:
                 "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name],
                 "probes": probes_launches[name]}
         extra = {key: timing[key] for key in
-                 ("marginal_ms", "old_marginal_ms", "engine_ms", "old_ms") if key in timing}
+                 ("marginal_ms", "old_marginal_ms", "engine_ms", "old_ms")
+                 if key in timing}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(runs.values()), **{f"launches_{k}": v for k, v in runs.items()},

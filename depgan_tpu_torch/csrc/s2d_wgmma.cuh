@@ -260,5 +260,188 @@ __host__ __device__ inline void unit_rows(int n, int units, int s, int* ya, int*
 // (units divides n+2), each staging its input rows once.
 cudaError_t rowblk(const Conv& cv, int units, cudaStream_t stream);
 
+// K11's window (the kernel conv5_wgmma in wgmma_conv5.cu): K7's 5x5 gather on K1's
+// tile walk, A read from the tile's input rows staged once. A tile is `rows`
+// whole output rows of wrow GEMM rows (64, 128 or 256, the least that holds
+// n: no m64 tile spans two rows, and the rows fill the tile): bm 256 where
+// bn <= 128 (two rows at n 128, four at n 64), else 128. Its rows + 2 padded input rows arrive as one TMA box (8
+// channels, n + 2 pixels, rows + 2 rows) for each 8-channel chunk: a window
+// is [chunk][row][pixel][8], the non-swizzled K-major layout, chunks `lead`
+// bytes apart, so the 16-deep step at depth k0 (tap = k0 / 4C, channels c ..
+// c + 15 of two chunks) reads, for output row r and pixel x, window row r +
+// tap / 3 at pixel x + tap % 3: one address, the two chunks a descriptor's
+// leading offset apart and 8 pixels its 128-byte stride offset. 4C % 16 == 0
+// keeps a step in one tap. Two windows where they fit beside two B stages,
+// so the producer loads the next tile's rows while the consumers multiply.
+// B (9 4C x 4Co, K7's rows) is loaded once a block and kept where all of it
+// fits beside two windows (the critic's L0a, L0b and their transposes) or
+// one (L1a: 144 KB), else it streams through its ring as the mainloop's. A
+// window's last chunk is followed by a zero pad of (wrow - n) pixels, what
+// the junk pixels past n of its last row read. Steps past K (4C 16: K 144
+// of 3 k-tiles) are skipped; the others run in K7's order, so K11 equals K7
+// bit for bit.
+struct Conv5Window {
+  int bm, bn, mt;  // tile rows and columns, m64 tiles a consumer warpgroup (bm / 128)
+  int wrow;        // GEMM rows an output row takes: 64, 128 or 256, at least n
+  int rows;        // output rows a tile: bm / wrow
+  int pitch;       // pixels of a window row: n + 2
+  int lead;        // bytes between a window's chunks: (rows + 2) pitch 16, rounded up to 128
+  int win_bytes;   // a window: its chunks and the pad, rounded up to 1 KB
+  int w_stages;    // windows: 2 where they fit beside 2 B stages, else 1
+  int b_stages;    // B ring stages, up to kStages; kt where B is kept
+  int resident;    // 1: all of B loaded once a block and kept, 0: B streamed
+  int steps;       // 16-deep steps up to K: 9 4C / 16
+  int kt;          // k-tiles of B: 9 4C / 64 rounded up
+  int smem;        // dynamic shared memory bytes, the 1 KB alignment included
+};
+// K11's window at interior side n, 4C = c4, 4Co = co4; bm 0 where the
+// kernel refuses it: 4C a multiple of 16, 4Co of 8 and at most 256 (one
+// column block), n + 2 at most 256 (a row is one TMA box), and two B
+// stages beside one window. B is kept where all of it fits beside one
+// window, else streamed.
+__host__ __device__ inline Conv5Window conv5_window(int n, int c4, int co4) {
+  Conv5Window w{};
+  if (n <= 0 || n + 2 > 256 || c4 <= 0 || c4 % 16 != 0 || c4 > 0xFFFF || co4 <= 0 ||
+      co4 % 8 != 0 || co4 > 256)
+    return w;
+  w.bn = (co4 + 63) / 64 * 64;
+  w.bm = w.bn <= 128 ? 2 * kBM : kBM;
+  w.mt = w.bm / kBM;
+  for (w.wrow = 64; w.wrow < n;) w.wrow *= 2;
+  w.rows = w.bm / w.wrow;
+  w.pitch = n + 2;
+  w.lead = ((w.rows + 2) * w.pitch * 16 + 127) / 128 * 128;
+  w.win_bytes = (c4 / 8 * w.lead + (w.wrow - n) * 16 + 1023) / 1024 * 1024;
+  w.steps = 9 * c4 / 16;
+  w.kt = (9 * c4 + kBK - 1) / kBK;
+  const int b_stage = w.bn * kBK * 2, fixed = 1024 + w.steps * 4;
+  const int b_all = w.kt * b_stage;  // B kept: two windows where they fit beside it, else one
+  w.resident = fixed + w.win_bytes + b_all <= kSmemMax;
+  w.w_stages = fixed + 2 * w.win_bytes + (w.resident ? b_all : 2 * b_stage) <= kSmemMax ? 2 : 1;
+  w.b_stages = (kSmemMax - fixed - w.w_stages * w.win_bytes) / b_stage;
+  if (w.b_stages > (w.resident ? w.kt : kStages)) w.b_stages = w.resident ? w.kt : kStages;
+  w.smem = fixed + w.w_stages * w.win_bytes + w.b_stages * b_stage;
+  if (w.rows < 1 || w.b_stages < 2) w.bm = 0;
+  return w;
+}
+
+// K11: K7's function (Conv with gather kGatherConv5x5, one operand, relu or
+// none) over the window.
+cudaError_t conv5_window_conv(const Conv& cv, cudaStream_t stream);
+
+// K10 (chain_wgmma in wgmma_chain.cu): a whole generator site, conv_in (K1,
+// or K3's two operands) -> the FiLM conv (K1 film) -> conv_out (K1, or K2
+// with its pool), in one launch. A persistent block owns a T x T tile of
+// output positions of one image. Region 0 holds stage 0's output over
+// (T + 4)^2 positions, region 1 stage 1's over T + 2 rows at region 0's
+// pitch T + 4; both in shared memory in the non-swizzled K-major layout
+// [chunk][pixel][8], the pixels of a region flattened row by row, chunks
+// `lead` bytes apart. A stage computes over its rows x pitch flattened
+// into GEMM rows, in passes of 128 mt rows (whole region rows a pass), and
+// stage s + 1 reads region s at + dy pitch + dx pixels: a tap's shift is a
+// descriptor address. Positions on the padded plane's ring or outside it,
+// and the columns past a stage's side, are stored as zeros. Stage 0 reads
+// the planes by K1's A routes, TMA boxes (32 channels, pitch, prow rows) or
+// cp.async where C % 32 != 0, into a ring whose A halves start at region 1,
+// which is not written yet (and run past it where the ring is the larger:
+// level 1's three 32 KB stages); each stage's B streams through the one ring.
+// Each stage sums its k-tiles in order with BN = 4Cm, the sequential
+// kernel's instruction, and rounds to bf16 where the sequential kernels
+// store, so K10 equals K1/K3 -> K1 film -> K1/K2 bit for bit.
+struct ChainPlan {
+  int route;     // stage 0's A: kRouteTma or kRouteCpAsync
+  int bn, mt;    // columns (4Cm), m64 tiles a consumer warpgroup: a pass is 128 mt GEMM rows
+  int tile;      // T
+  int pitch;     // pixels of a region row: T + 4
+  int prow[3];   // region rows a pass, by stage
+  int passes[3]; // passes, by stage
+  int rpx;       // pixels a region chunk holds: the live ones and what junk rows read past them
+  int lead;      // bytes between a region's chunks: rpx 16
+  int region;    // bytes of a region, rounded up to 1 KB
+  int area1;     // bytes from region 1 to the B ring: the region, or the A ring where larger
+  int stages;    // ring stages: A halves from region 1 on, B in its own area
+  int smem;      // dynamic shared memory bytes, the 1 KB alignment included
+};
+
+// The rows of stage s's region: T + 4, T + 2, T.
+__host__ __device__ inline int chain_rows(int tile, int s) { return tile + 4 - 2 * s; }
+
+// The plan of a K10 launch at interior side n with stage-0 widths c4 (n_ops
+// of them), 4Cm = c4m and 4Co = c4o; bn 0 where the kernel refuses it:
+// 4Cm 128 or 256 with 4Co = 4Cm (BN = 4Cm, the sequential kernels' width),
+// stage-0 widths of whole 16-byte runs of one channel group (C % 8 == 0),
+// pool s2d at an even n. T is the side, from 2 to 32, that fits with two
+// ring stages and computes the fewest GEMM rows an image (tail tiles
+// included): 12 at 4Cm 128 and n 128, 8 at 4Cm 256 and n 64.
+__host__ __device__ inline ChainPlan chain_plan(int n, const int* c4, int n_ops, int c4m, int c4o,
+                                               int pool) {
+  ChainPlan p{};
+  bool ok = n > 0 && n_ops >= 1 && n_ops <= 2 && (c4m == 128 || c4m == 256) && c4o == c4m &&
+            pool >= kPoolNone && pool <= kPoolS2d && (pool != kPoolS2d || n % 2 == 0);
+  bool boxes = true;
+  for (int o = 0; o < n_ops; ++o) {
+    ok = ok && c4[o] > 0 && c4[o] % (4 * kVec) == 0 && c4[o] <= 0xFFFF;
+    boxes = boxes && (c4[o] / 4) % kHalf == 0;
+  }
+  if (!ok) return p;
+  const int bn = c4m, mt = bn <= 128 ? 2 : 1, bmp = kBM * mt;
+  const int b_stage = bn * kBK * 2, a_stage = bmp * kBK * 2;
+  int kt0 = 0;
+  for (int o = 0; o < n_ops; ++o) kt0 += 4 * c4[o] / kBK;
+  const int fixed = 1024 + kt0 * (kBK / kVec) * 4 + c4m / 4 * 4;  // the two plans
+  int64_t best = 0;  // GEMM rows an image of the plan so far
+  for (int t = 2; t <= 32; ++t) {
+    ChainPlan q{};
+    q.route = boxes ? kRouteTma : kRouteCpAsync;
+    q.bn = bn, q.mt = mt, q.tile = t, q.pitch = t + 4;
+    if (q.pitch > bmp) break;
+    int rows = 0;
+    q.rpx = q.pitch * chain_rows(t, 0);
+    for (int s = 0; s < 3; ++s) {
+      const int r = chain_rows(t, s);
+      q.prow[s] = bmp / q.pitch < r ? bmp / q.pitch : r;
+      q.passes[s] = (r + q.prow[s] - 1) / q.prow[s];
+      rows += q.passes[s] * bmp;
+      // stage s reads region s - 1 up to its last pass's rows + 2 pitch + 2
+      const int reach = (q.passes[s] - 1) * q.prow[s] * q.pitch + bmp + 2 * q.pitch + 2;
+      if (s > 0 && reach > q.rpx) q.rpx = reach;
+    }
+    q.lead = q.rpx * 16;
+    q.region = (c4m / 8 * q.lead + 1023) / 1024 * 1024;
+    // The most ring stages that fit, the A ring running past region 1 where
+    // it is the larger: 3 at level 1 (32 KB A stages), 2 at level 2 (32 KB B).
+    for (q.stages = kStages; q.stages >= 2; --q.stages) {
+      q.area1 = q.region > q.stages * a_stage ? q.region : q.stages * a_stage;
+      q.smem = fixed + q.region + q.area1 + q.stages * b_stage;
+      if (q.smem <= kSmemMax) break;
+    }
+    const int64_t side = (n + t - 1) / t, per_image = side * side * rows;
+    if (q.stages >= 2 && (p.bn == 0 || per_image < best)) p = q, best = per_image;
+  }
+  return p;
+}
+
+// One bf16 K10 launch: stage 0 over x[0..n_ops) with w0 (4 c4[o], c4m),
+// relu; stage 1 the film conv w1 (4 c4m, c4m) with gamma, beta (batch,
+// c4m) and the trunk from region 0; stage 2 the relu conv w2 (4 c4m, c4m)
+// into out, with its pool when pool != kPoolNone.
+struct Chain {
+  const __nv_bfloat16* x[2];
+  const __nv_bfloat16* w0[2];
+  int c4[2];
+  int n_ops;
+  const __nv_bfloat16* w1;
+  const __nv_bfloat16* w2;
+  const float* bias[3];
+  const float* gamma;
+  const float* beta;
+  int batch, n, c4m, pool;
+  __nv_bfloat16* out;     // (batch, n+2, n+2, c4m)
+  __nv_bfloat16* pooled;  // pixel: (batch, n, n, c4m/4); s2d: (batch, n/2+2, n/2+2, c4m)
+};
+
+// K10 on the wgmma machinery; an error code for what chain_plan refuses.
+cudaError_t chain3(const Chain& ch, cudaStream_t stream);
+
 }  // namespace wg
 }  // namespace depgan

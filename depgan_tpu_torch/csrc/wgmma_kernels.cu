@@ -61,21 +61,11 @@
 // bit (a K padded to whole k-tiles adds products of zeros); so do P1's full
 // and matmul_only and P2, which sum in the same order.
 
-#include <cuda.h>
-
-#include "s2d_gemm.cuh"
-#include "s2d_wgmma.cuh"
+#include "wgmma_device.cuh"
 
 namespace depgan {
 namespace wg {
 namespace {
-
-constexpr int kThreadsWg = 384;  // producer warpgroup, then two consumer warpgroups
-constexpr int kABytes = kBM * kBK * 2;      // 16 KB a 128 rows: two halves of 64 bytes a row
-constexpr int kAHalfBytes = kABytes / 2;
-constexpr int kM64Bytes = 64 * 64;          // one m64 tile of a half
-constexpr int kBBox = 64;                   // B box: 64 columns (128 bytes) x 64 rows
-constexpr int kBBoxBytes = kBBox * kBK * 2;
 
 struct alignas(64) Params {
   CUtensorMap a_map[2];  // the planes as (4C, P, P, B), box (32, bx, by, bb); TMA route only.
@@ -87,262 +77,6 @@ struct alignas(64) Params {
   int reps;              // P1: repeats of each tile's phase
   float* sums;           // P1 stage_only: one float a tile of bm rows
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-// Spins until the barrier's phase of the given parity completes. A wait
-// that outlasts ~2^26 polls (seconds) traps: a lost arrival becomes a launch
-// error, not a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0, polls = 0;
-  do {
-    if (++polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-// Makes this thread's generic-proxy writes to shared memory (its cp.async
-// copies, once waited for) visible to the async proxy that wgmma reads with.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
-// Matrix descriptors. A: K-major, 64-byte swizzle, 8-row groups 512 bytes
-// apart (the leading offset is unused). B: N-major, 128-byte swizzle, 64-
-// column blocks 8 KB apart (leading offset), 8-row k groups 1 KB apart
-// (stride offset). Every stage base is 1 KB aligned, so the base offset is 0.
-__device__ __forceinline__ uint64_t desc_a(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
-         ((uint64_t)2 << 62);
-}
-__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kBBoxBytes >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-// P2's A from the window: K-major, no swizzle (layout 0), the two 8-deep
-// core matrices of a step `lead` bytes apart, 8-row groups 128 bytes apart.
-__device__ __forceinline__ uint64_t desc_window(uint32_t addr, uint32_t lead) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
-
-// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A K-major, B N-major
-// (imm-trans-b 1), accumulating (scale-d 1). Thread t of the warpgroup holds
-// d[4j + 2i + h] = D[16 (t/32) + (t%32)/4 + 8i][8j + 2 (t%4) + h].
-template <int N> struct Wgmma;
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-template <> struct Wgmma<192> {
-  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-template <> struct Wgmma<256> {
-  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-// The epilogue's transpose. Lane q of a quad holds columns 8j + 2q, +1 of
-// each 8-column block j of its rows (i = 0: the upper 8 of its 16, 1: the
-// lower); a 4 x 4 transpose over the group of blocks 4G .. 4G + 3 gives it
-// the 8 columns of block 4G + q, in 4 rounds of shuffles.
-template <int BN>
-__device__ __forceinline__ void quad_columns(const float (&acc)[BN / 2], int G, int i, int q,
-                                             int lane, float (&v)[8]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int sb = (q + r) & 3, from = (q - r) & 3;  // block sent, lane received from
-    float s0 = acc[(4 * G + 3) * 4 + 2 * i], s1 = acc[(4 * G + 3) * 4 + 2 * i + 1];
-#pragma unroll
-    for (int blk = 2; blk >= 0; --blk) {
-      if (sb == blk) s0 = acc[(4 * G + blk) * 4 + 2 * i], s1 = acc[(4 * G + blk) * 4 + 2 * i + 1];
-    }
-    const float r0 = __shfl_sync(0xffffffffu, s0, (lane & ~3) | from);
-    const float r1 = __shfl_sync(0xffffffffu, s1, (lane & ~3) | from);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (from == u) v[2 * u] = r0, v[2 * u + 1] = r1;
-    }
-  }
-}
-
-// Eight bf16 values, one 16-byte run.
-union Pack {
-  uint4 u;
-  __nv_bfloat16 v[8];
-};
-
-// v += the bias of columns col .. col + 7.
-__device__ __forceinline__ void add_bias(const float* bias, int col, float (&v)[8]) {
-  const float4 b0 = *reinterpret_cast<const float4*>(bias + col);
-  const float4 b1 = *reinterpret_cast<const float4*>(bias + col + 4);
-  const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] += b[e];
-}
-
-// v rounded to bf16 and stored as one 16-byte run at dst; the rounded values.
-__device__ __forceinline__ Pack store_bf16(__nv_bfloat16* dst, const float (&v)[8]) {
-  Pack out;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) out.v[e] = __float2bfloat16(v[e]);
-  *reinterpret_cast<uint4*>(dst) = out.u;
-  return out;
-}
-
-// A stage's share of A summed by a consumer thread (P1 stage_only): 16-byte
-// runs tid, tid + 256, ... of its bytes, as float32.
-template <int BYTES>
-__device__ __forceinline__ float stage_sum(const unsigned char* a, int ctid) {
-  float sum = 0.f;
-#pragma unroll
-  for (int v = ctid; v < BYTES / 16; v += 256) {
-    const uint4 u = reinterpret_cast<const uint4*>(a)[v];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      sum += f.x;
-      sum += f.y;
-    }
-  }
-  return sum;
-}
-
-__device__ __forceinline__ void consumers_sync() {  // both consumer warpgroups, not the producer
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
 
 // MT m64 tiles a consumer warpgroup: BM = 128 MT rows a block. POOL: K2's
 // pooled epilogue, a separate instantiation so the others keep theirs lean.
@@ -805,51 +539,6 @@ __global__ void __launch_bounds__(kThreadsWg, 1) rowblk_wgmma(const __grid_const
     }
     gi0 += rows_u + 2;
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, reached through the runtime so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map of rank dims (innermost first, strides in bytes of dims
-// 1 .. rank-1) with the given box and swizzle; zeros fill what lies outside.
-bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The SMs of the current device, the persistent grid's cap.
-cudaError_t sm_count(int* sms) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  return err;
 }
 
 template <int BN, int MT, bool POOL, int PHASE = kProduction>

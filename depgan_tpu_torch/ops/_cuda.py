@@ -70,6 +70,11 @@ _SIGNATURES = {
     "depgan_conv3x3_s2d_engine": [_I] + [_P] * 9 + [_I] * 7 + [_P],
     # dtype, x, w9, bias, out, batch, n, c4, co4, epilogue, stream
     "depgan_conv5x5_s2d_engine": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w9, bias, out, batch, n, c4, co4, epilogue, stream (bf16)
+    "depgan_conv5x5_s2d_window": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x1, x2, w1a, w1b, b1, w2, b2, w3, b3, gamma, beta, out, pooled, batch,
+    # n, c4a, c4b, c4m, c4o, pool, stream (bf16)
+    "depgan_conv3x3_s2d_chain3_wgmma": [_P] * 13 + [_I] * 7 + [_P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,6 +119,12 @@ def library() -> ctypes.CDLL:
     # n, c4, co4, out, cap -> ints written (P2's window, a query)
     lib.depgan_rowblk_plan.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int), _I]
     lib.depgan_rowblk_plan.restype = ctypes.c_int
+    # n, c4, co4, out, cap -> ints written (K11's window, a query)
+    lib.depgan_conv5_window_plan.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int), _I]
+    lib.depgan_conv5_window_plan.restype = ctypes.c_int
+    # n, c4a, c4b, c4m, c4o, pool, out, cap -> ints written (K10's plan, a query)
+    lib.depgan_chain_plan.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_int), _I]
+    lib.depgan_chain_plan.restype = ctypes.c_int
     return lib
 
 

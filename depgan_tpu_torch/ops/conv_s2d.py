@@ -46,7 +46,7 @@ from .s2d_conv import (
     flip_transpose_w5,
     s2d_unshifted,
 )
-from .wgmma_plan import POOL_WIDTHS
+from .wgmma_plan import POOL_WIDTHS, chain_plan, conv5_window_takes
 
 _EPILOGUES = {"relu": 0, "film": 1, "none": 2}
 _POOLS = {"pixel": 1, "s2d": 2}
@@ -449,11 +449,16 @@ def _pool_impl(x_padded, to_s2d: bool):
     return out
 
 
-def conv5_kernel_name(c4: int) -> str:
+def conv5_kernel_name(c4: int, co4: int = 0, n: int = 0, dtype=torch.float32) -> str:
     """The kernel a CUDA call of ``_conv5_impl`` with 4C input channels
     launches: K11 when ``CONV5_PACKED`` is on and 4C <= 64 (JAX's gate,
-    ``conv_s2d_pallas.py:1952``), else K7."""
-    return "conv5x5_s2d_fused[packed]" if CONV5_PACKED and c4 <= 64 else "conv5x5_s2d_fused"
+    ``conv_s2d_pallas.py:1952``), else K7. bfloat16 K11 runs the wgmma
+    window, so a bfloat16 call (4Co output channels at interior side n)
+    launches K11 only at widths the window takes
+    (``wgmma_plan.conv5_window_takes``) and K7, the same sums, elsewhere."""
+    packed = CONV5_PACKED and c4 <= 64 and (
+        dtype != torch.bfloat16 or conv5_window_takes(n, c4, co4))
+    return "conv5x5_s2d_fused[packed]" if packed else "conv5x5_s2d_fused"
 
 
 def _conv5_impl(x_padded, w9, bias4, mode="relu"):
@@ -461,7 +466,10 @@ def _conv5_impl(x_padded, w9, bias4, mode="relu"):
     (B, N+2, N+2, 4C) -> (B, N+2, N+2, 4Co). w9 (3, 3, 4C, 4Co) in the dtype
     of x, bias4 (4Co,) float32; ``mode`` 'relu' or 'none'. On a CUDA tensor
     it launches K11 (``conv5x5_s2d_fused[packed]``) when ``CONV5_PACKED`` is
-    on and 4C <= 64, else K7; both take 4C and 4Co multiples of 8."""
+    on and 4C <= 64, else K7; both take 4C and 4Co multiples of 8. bfloat16
+    K11 runs the wgmma window kernel at the widths it takes (4C a multiple
+    of 16, 4Co up to 256, N+2 <= 256: ``conv5_kernel_name``), and other
+    bfloat16 widths launch K7; float32 K11 runs ``window_conv``."""
     b, n, c4 = _check_plane("conv5x5_s2d_fused", x_padded)
     co4 = w9.shape[-1]
     _check_weight("w9", w9, (3, 3, c4, co4), x_padded.dtype)
@@ -471,13 +479,20 @@ def _conv5_impl(x_padded, w9, bias4, mode="relu"):
         return conv5x5_s2d_fused_plain(x_padded, w9, bias4, mode)
     _check_kernel_widths(co4, c4, run=8)
     dev, dt = x_padded.device, x_padded.dtype
+    name = conv5_kernel_name(c4, co4, n, dt)
+    window = name.endswith("[packed]") and dt == torch.bfloat16
     out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
-    name = conv5_kernel_name(c4)
-    entry = "depgan_conv5x5_s2d_packed" if name.endswith("[packed]") else "depgan_conv5x5_s2d_fused"
+    args = (x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(), out.data_ptr(), b, n, c4, co4,
+            _EPILOGUES[mode])
     with torch.cuda.device(dev):
-        _launch(name, (b, n, c4, co4, mode), entry, _cuda.DTYPE_CODES[dt],
-                x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(), out.data_ptr(),
-                b, n, c4, co4, _EPILOGUES[mode], _cuda.stream(dev))
+        if window:
+            _launch(name, (b, n, c4, co4, mode), "depgan_conv5x5_s2d_window", *args,
+                    _cuda.stream(dev))
+        else:
+            entry = ("depgan_conv5x5_s2d_packed" if name.endswith("[packed]")
+                     else "depgan_conv5x5_s2d_fused")
+            _launch(name, (b, n, c4, co4, mode), entry, _cuda.DTYPE_CODES[dt], *args,
+                    _cuda.stream(dev))
     return out
 
 
@@ -588,7 +603,9 @@ def conv3x3_s2d_chain3(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4, w34, 
     4Cm), wf4 (2, 2, 4Cm, 4Cm), w34 (2, 2, 4Cm, 4Co) in the dtype of x;
     biases, gamma4 and beta4 (B, 4Cm) float32. Returns out, or (out, pooled)
     for ``pool`` 's2d' / 'pixel' as ``conv3x3_s2d_fused_pool``.
-    Inference-only."""
+    Inference-only. bfloat16 runs the wgmma chain, which takes the widths
+    ``wgmma_plan.chain_plan`` takes (4Cm = 4Co of 128 or 256) and raises for
+    others; float32 runs ``s2d_chain``."""
     b, n, c4a = _check_plane("conv3x3_s2d_chain3", x_padded)
     c4m, c4o = w1a4.shape[-1], w34.shape[-1]
     if wf4.shape[-1] != c4m:
@@ -620,6 +637,9 @@ def conv3x3_s2d_chain3(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4, w34, 
         return conv3x3_s2d_chain3_plain(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4,
                                         w34, bias34, x2_padded, w1b4, pool)
     _check_kernel_widths(c4o, c4a, c4m, *((c4b,) if two_op else ()))
+    wgmma = dt == torch.bfloat16
+    if wgmma:
+        chain_plan(n, (c4a, c4b) if two_op else (c4a,), c4m, c4o, pool)  # raises for refusals
     dev = x_padded.device
     out = torch.empty((b, n + 2, n + 2, c4o), dtype=dt, device=dev)
     pooled = None
@@ -627,9 +647,18 @@ def conv3x3_s2d_chain3(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4, w34, 
         pooled = torch.empty((b, n // 2 + 2, n // 2 + 2, c4o), dtype=dt, device=dev)
     elif pool == "pixel":
         pooled = torch.empty((b, n, n, c4o // 4), dtype=dt, device=dev)
-    _launch_chain("conv3x3_s2d_chain3", (b, n, c4a, c4b, c4m, c4o, pool), x_padded, x2_padded,
-                  w1a4, w1b4, bias14, wf4, biasf4, w34, bias34, gamma4, beta4, out, pooled,
-                  ("relu", "film", "relu"), pool)
+    problem = (b, n, c4a, c4b, c4m, c4o, pool)
+    if not wgmma:
+        _launch_chain("conv3x3_s2d_chain3", problem, x_padded, x2_padded, w1a4, w1b4, bias14, wf4,
+                      biasf4, w34, bias34, gamma4, beta4, out, pooled, ("relu", "film", "relu"),
+                      pool)
+        return (out, pooled) if pool else out
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        _launch("conv3x3_s2d_chain3", problem, "depgan_conv3x3_s2d_chain3_wgmma",
+                *(ptr(t) for t in (x_padded, x2_padded, w1a4, w1b4, bias14, wf4, biasf4, w34,
+                                   bias34, gamma4, beta4, out, pooled)),
+                b, n, c4a, c4b, c4m, c4o, _POOLS.get(pool, 0), _cuda.stream(dev))
     return (out, pooled) if pool else out
 
 

@@ -23,9 +23,11 @@ with their plain PyTorch versions.
 ``conv3x3_engine`` launches the GEMM engine's K1, K2 or K3 and
 ``conv5x5_engine`` its K7, which the wrappers no longer call in bfloat16:
 the references that the wgmma mainloop, the chains and P1, P2 equal bit for
-bit. ``kernel_anatomy_engine`` and ``conv3x3_rowblk_window`` are P1's and
-P2's bfloat16 routes before the mainloop took them over (the engine's
-phases, the ``mma.sync`` window kernel), kept to be timed beside them.
+bit. ``kernel_anatomy_engine``, ``conv3x3_rowblk_window``,
+``conv5x5_packed_mma_sync`` and ``conv3x3_chain3_wmma`` are P1's, P2's,
+K11's and K10's bfloat16 routes before the wgmma kernels took them over
+(the engine's phases, the ``mma.sync`` window kernel, the engine's wmma
+chain), kept to be timed beside them.
 
 As in ``conv_s2d``: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel and counts the launch in ``conv_s2d.SHAPES`` under the
@@ -221,6 +223,61 @@ def conv5x5_engine(x_padded, w9, bias4, mode="relu"):
             out.data_ptr(), b, n, c4, co4, K._EPILOGUES[mode], _cuda.stream(dev)),
             "conv5x5_engine")
     return out
+
+
+def conv5x5_packed_mma_sync(x_padded, w9, bias4, mode="relu"):
+    """K11 on ``window_conv`` (``csrc/window_kernels.cu``, ``mma.sync``) in
+    either dtype: bfloat16's route before the wgmma window took it over. A
+    reference for ``chip_smoke.py`` to time in turns with K11 and for the
+    card's tests: no path calls it, and it counts no launch. Arguments as
+    ``conv_s2d._conv5_impl``."""
+    b, n, c4 = K._check_plane("conv5x5_packed_mma_sync", x_padded)
+    co4 = w9.shape[-1]
+    K._check_weight("w9", w9, (3, 3, c4, co4), x_padded.dtype)
+    K._check_f32("bias4", bias4, (co4,))
+    K._require(mode in ("relu", "none"), f"bad mode {mode!r}")
+    if not K._on_cuda(x_padded, w9, bias4):
+        return K.conv5x5_s2d_fused_plain(x_padded, w9, bias4, mode)
+    K._check_kernel_widths(co4, c4, run=8)
+    dev, dt = x_padded.device, x_padded.dtype
+    out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.check(_cuda.library().depgan_conv5x5_s2d_packed(
+            _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(),
+            out.data_ptr(), b, n, c4, co4, K._EPILOGUES[mode], _cuda.stream(dev)),
+            "conv5x5_packed_mma_sync")
+    return out
+
+
+def conv3x3_chain3_wmma(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4, w34, bias34,
+                        x2_padded=None, w1b4=None, pool=""):
+    """K10 on ``s2d_chain`` (``csrc/chain_kernels.cu``, the engine's wmma)
+    in either dtype: bfloat16's route before the wgmma chain took it over.
+    A reference for ``chip_smoke.py`` to time in turns with K10: no path
+    calls it, and it counts no launch. Arguments and result as
+    ``conv_s2d.conv3x3_s2d_chain3``, whose checks it leaves to that call."""
+    if not K._on_cuda(x_padded, w1a4, wf4, w34):
+        return K.conv3x3_s2d_chain3_plain(x_padded, w1a4, bias14, wf4, biasf4, gamma4, beta4,
+                                          w34, bias34, x2_padded, w1b4, pool)
+    b, n, c4o = x_padded.shape[0], x_padded.shape[1] - 2, w34.shape[-1]
+    dev, dt = x_padded.device, x_padded.dtype
+    out = torch.empty((b, n + 2, n + 2, c4o), dtype=dt, device=dev)
+    pooled = None
+    if pool == "s2d":
+        pooled = torch.empty((b, n // 2 + 2, n // 2 + 2, c4o), dtype=dt, device=dev)
+    elif pool == "pixel":
+        pooled = torch.empty((b, n, n, c4o // 4), dtype=dt, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        _cuda.check(_cuda.library().depgan_conv3x3_s2d_chain(
+            _cuda.DTYPE_CODES[dt], *(ptr(t) for t in (
+                x_padded, x2_padded, w1a4, w1b4, bias14, wf4, biasf4, w34, bias34, gamma4, beta4,
+                out, pooled)),
+            b, n, x_padded.shape[-1], 0 if x2_padded is None else x2_padded.shape[-1],
+            w1a4.shape[-1], c4o, K._EPILOGUES["relu"], K._EPILOGUES["film"],
+            K._EPILOGUES["relu"], K._POOLS.get(pool, 0), _cuda.stream(dev)),
+            "conv3x3_chain3_wmma")
+    return (out, pooled) if pool else out
 
 
 def conv3x3_rowblk_plain(x_padded, w4, bias4, n_blocks):

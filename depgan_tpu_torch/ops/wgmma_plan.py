@@ -26,7 +26,10 @@ rows staged once a work unit (``Window`` in the header): ``window`` is its
 geometry and step plan, ``unit_rows`` its work units, and ``gather_window``
 rebuilds A by walking the units as a block does, the window held as the
 header lays it out and read at the addresses the kernel's matrix
-descriptors give.
+descriptors give. bf16 K11 does the same over a window of each tile's input
+rows (``Conv5Window``: ``conv5_window``, ``gather_conv5_window``), and bf16
+K10 chains three convs through two regions of shared memory (``ChainPlan``:
+``chain_plan``, and ``run_chain``, its stages in plain torch).
 """
 
 from __future__ import annotations
@@ -302,3 +305,314 @@ def library_window(n: int, c4: int, co4: int) -> list[int]:
     if wrote < 0:
         raise ValueError(f"depgan_rowblk_plan refused n {n}, 4C {c4}, 4Co {co4}")
     return list(buf[:wrote])
+
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv5Window:
+    """K11's window (``Conv5Window`` in the header): K7's 5x5 gather on K1's
+    tile walk, a tile of ``rows`` output rows of ``wrow`` GEMM rows reading
+    rows + 2 padded input rows staged once, each 8-channel chunk one TMA box
+    of ``rows + 2`` rows x ``pitch`` pixels, chunks ``lead`` bytes apart."""
+    bm: int        # tile rows: 256 where bn <= 128, else 128
+    bn: int        # tile columns: 4Co rounded up to 64
+    mt: int        # m64 tiles a consumer warpgroup: bm // 128
+    wrow: int      # GEMM rows an output row takes: 64, 128 or 256, at least n
+    rows: int      # output rows a tile: bm // wrow
+    pitch: int     # pixels of a window row: n + 2
+    lead: int      # bytes between chunks: (rows + 2) * pitch * 16 rounded up to 128
+    win_bytes: int  # a window: its chunks and a pad of (wrow - n) pixels, rounded up to 1 KB
+    w_stages: int  # windows: 2 where they fit beside 2 B stages
+    b_stages: int  # B ring stages, up to STAGES; kt where B is kept
+    resident: bool  # all of B loaded once a block and kept (else streamed)
+    kt: int        # k-tiles of B
+    smem: int      # dynamic shared memory bytes, the 1 KB alignment included
+    steps: tuple[tuple[int, int, int], ...]  # (channel, dx, dy) of each 16-deep step up to K
+
+
+def conv5_window(n: int, c4: int, co4: int) -> Conv5Window:
+    """K11's window at interior side n, 4C = c4, 4Co = co4. Raises
+    ValueError where the kernel refuses it: 4C a multiple of 16 (a 16-deep
+    step is two chunks of one tap), 4Co a multiple of 8 up to 256 (one
+    column block), n + 2 at most 256 (a row is one TMA box), two B stages
+    beside one window. B is kept a block where all of it fits beside one
+    window, else streamed."""
+    if (n <= 0 or n + 2 > 256 or c4 <= 0 or c4 % 16 or c4 > 0xFFFF or co4 <= 0 or co4 % 8
+            or co4 > 256):
+        raise ValueError(f"K11's window takes 4C a multiple of 16, 4Co a multiple of 8 up to "
+                         f"256 and n + 2 <= 256, got n {n}, 4C {c4}, 4Co {co4}")
+    bn = -(-co4 // 64) * 64
+    bm = 2 * BM if bn <= 128 else BM
+    wrow = 64
+    while wrow < n:  # the rows fill the tile: no m64 tile outside them
+        wrow *= 2
+    rows = bm // wrow
+    pitch = n + 2
+    lead = -(-(rows + 2) * pitch * 16 // 128) * 128
+    win_bytes = -(-(c4 // 8 * lead + (wrow - n) * 16) // 1024) * 1024
+    n_steps = 9 * c4 // 16
+    b_stage, fixed, kt = bn * BK * 2, 1024 + n_steps * 4, -(-9 * c4 // BK)
+    resident = fixed + win_bytes + kt * b_stage <= SMEM_MAX  # beside 2 windows or 1
+    w_stages = 2 if fixed + 2 * win_bytes + (kt if resident else 2) * b_stage <= SMEM_MAX else 1
+    b_stages = min(kt if resident else STAGES, (SMEM_MAX - fixed - w_stages * win_bytes) // b_stage)
+    if rows < 1 or b_stages < 2:
+        raise ValueError(f"K11's window does not fit: n {n}, 4C {c4}, 4Co {co4}")
+    steps = tuple(chunk(c4, 16 * j, "conv5x5") for j in range(n_steps))
+    return Conv5Window(bm, bn, bm // BM, wrow, rows, pitch, lead, win_bytes, w_stages, b_stages,
+                       resident, kt, fixed + w_stages * win_bytes + b_stages * b_stage, steps)
+
+
+def conv5_window_ints(w: Conv5Window) -> list[int]:
+    """The window in the layout of the library's ``depgan_conv5_window_plan``."""
+    return [w.bm, w.bn, w.mt, w.wrow, w.rows, w.pitch, w.lead, w.win_bytes, w.w_stages,
+            w.b_stages, int(w.resident), len(w.steps), w.kt, w.smem,
+            *(v for step in w.steps for v in step)]
+
+
+def gather_conv5_window(w: Conv5Window, x_padded: torch.Tensor) -> torch.Tensor:
+    """A (B*n*n, 9*4C) as K11's consumers read it: tile i of the walk is
+    output rows y0 .. y0 + rows - 1 of image b, loaded into window i % w_stages
+    (which starts as zeros and keeps what earlier tiles left) as one box a
+    chunk: padded rows y0 .. y0 + rows + 1 (zeros past the plane), every
+    pixel, 8 channels, at chunk * lead bytes. Each m64 tile's 16-deep step
+    reads row i at 16 i bytes from its output row's first pixel shifted by
+    the step's tap (the descriptor's stride offset over 8 rows is 128
+    bytes) and its second 8-deep half ``lead`` bytes on. Raises if a read
+    leaves the window; positions no tile stores stay NaN."""
+    b, side, c4 = x_padded.shape[0], x_padded.shape[1], x_padded.shape[-1]
+    n, r2 = side - 2, w.rows + 2
+    elems = w.win_bytes // 2
+    windows = [x_padded.new_zeros(elems) for _ in range(w.w_stages)]
+    i, h, e = torch.meshgrid(torch.arange(64), torch.arange(2), torch.arange(8), indexing="ij")
+    read = ((i * 16 + h * w.lead) // 2 + e).reshape(64, 16)
+    a = torch.full((b, n, n, 9 * c4), float("nan"), dtype=x_padded.dtype)
+    tiles_img = -(-n // w.rows)
+    rows_past = F.pad(x_padded, (0, 0, 0, 0, 0, r2))  # TMA's zeros past the plane
+    for tile in range(b * tiles_img):
+        bb, y0 = tile // tiles_img, tile % tiles_img * w.rows
+        win = windows[tile % w.w_stages]
+        for k8 in range(c4 // 8):
+            box = rows_past[bb, y0:y0 + r2, :, 8 * k8:8 * k8 + 8].reshape(-1)
+            win[k8 * w.lead // 2:k8 * w.lead // 2 + box.numel()] = box
+        for i64 in range(0, w.bm, 64):
+            r, x0 = divmod(i64, w.wrow)
+            base = (r * w.pitch + x0) * 8  # elements
+            cols = []
+            for c, dx, dy in w.steps:
+                at = read + base + (c // 8 * w.lead + (dy * w.pitch + dx) * 16) // 2
+                if int(at.max()) >= elems:
+                    raise ValueError(f"tile {tile} row {r} reads past the window")
+                cols.append(win[at])
+            live = min(64, n - x0) if y0 + r < n else 0
+            if live > 0:
+                a[bb, y0 + r, x0:x0 + live] = torch.cat(cols, dim=1)[:live]
+    return a.reshape(b * n * n, 9 * c4)
+
+
+def conv5_window_takes(n: int, c4: int, co4: int) -> bool:
+    """Whether K11's window kernel takes these widths (``conv5_window``
+    raises for the others)."""
+    try:
+        conv5_window(n, c4, co4)
+    except ValueError:
+        return False
+    return True
+
+
+def library_conv5_window(n: int, c4: int, co4: int) -> list[int]:
+    """The built library's own K11 window (``depgan_conv5_window_plan``), in
+    the layout of ``conv5_window_ints``: needs the library."""
+    import ctypes
+
+    from . import _cuda
+
+    cap = 14 + 3 * 9 * c4 // 16
+    buf = (ctypes.c_int * cap)()
+    wrote = _cuda.library().depgan_conv5_window_plan(n, c4, co4, buf, cap)
+    if wrote < 0:
+        raise ValueError(f"depgan_conv5_window_plan refused n {n}, 4C {c4}, 4Co {co4}")
+    return list(buf[:wrote])
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """K10's plan (``ChainPlan`` in the header): a T x T tile of outputs,
+    region 0 (stage 0's output over (T + 4)^2 positions) and region 1
+    (stage 1's over T + 2 rows) at pitch T + 4, each stage's rows x pitch
+    flattened into GEMM rows in passes of 128 * mt rows."""
+    route: str      # stage 0's A: "tma" or "cp.async"
+    bn: int         # columns: 4Cm
+    mt: int         # m64 tiles a consumer warpgroup
+    tile: int       # T
+    pitch: int      # pixels of a region row: T + 4
+    prow: tuple[int, int, int]    # region rows a pass, by stage
+    passes: tuple[int, int, int]  # passes, by stage
+    rpx: int        # pixels a region chunk holds
+    lead: int       # bytes between a region's chunks: rpx * 16
+    region: int     # bytes of a region, rounded up to 1 KB
+    area1: int      # bytes from region 1 to the B ring: the region, or the A ring where larger
+    stages: int     # ring stages
+    smem: int       # dynamic shared memory bytes, the 1 KB alignment included
+
+
+def chain_rows(tile: int, s: int) -> int:
+    """Region rows of stage s: T + 4, T + 2, T."""
+    return tile + 4 - 2 * s
+
+
+def chain_plan(n: int, c4s: tuple[int, ...], c4m: int, c4o: int, pool: str = "") -> ChainPlan:
+    """K10's plan at interior side n, stage-0 widths ``c4s``, 4Cm and 4Co.
+    Raises ValueError where the kernel refuses it: 4Cm 128 or 256 with 4Co =
+    4Cm, stage-0 widths of whole 16-byte runs of one channel group (4C a
+    multiple of 32), one or two of them, pool s2d at an even n. T, from 2 to
+    32, is the side that fits with two ring stages and computes the fewest
+    GEMM rows an image, tail tiles included."""
+    if (not 1 <= len(c4s) <= 2 or c4m not in (128, 256) or c4o != c4m or pool not in POOLS
+            or (pool == "s2d" and n % 2) or n <= 0
+            or any(c4 <= 0 or c4 % (4 * VEC) or c4 > 0xFFFF for c4 in c4s)):
+        raise ValueError(f"K10's wgmma chain takes 4Cm = 4Co of 128 or 256 and stage-0 4C "
+                         f"multiples of 32, got n {n}, 4C {c4s}, 4Cm {c4m}, 4Co {c4o}, "
+                         f"pool {pool!r}")
+    bn, mt = c4m, 2 if c4m <= 128 else 1
+    bmp = BM * mt
+    b_stage, a_stage = bn * BK * 2, bmp * BK * 2
+    kt0 = sum(4 * c4 // BK for c4 in c4s)
+    fixed = 1024 + kt0 * (BK // VEC) * 4 + c4m // 4 * 4
+    route = ROUTES[0] if all((c4 // 4) % HALF == 0 for c4 in c4s) else ROUTES[1]
+    best, best_rows = None, 0
+    for t in range(2, 33):
+        pitch = t + 4
+        if pitch > bmp:
+            break
+        prow = tuple(min(bmp // pitch, chain_rows(t, s)) for s in range(3))
+        passes = tuple(-(-chain_rows(t, s) // prow[s]) for s in range(3))
+        rpx = max([pitch * chain_rows(t, 0)]
+                  + [(passes[s] - 1) * prow[s] * pitch + bmp + 2 * pitch + 2 for s in (1, 2)])
+        region = -(-(c4m // 8 * rpx * 16) // 1024) * 1024
+        fits = [(stages, max(region, stages * a_stage)) for stages in range(STAGES, 1, -1)
+                if fixed + region + max(region, stages * a_stage) + stages * b_stage <= SMEM_MAX]
+        per_image = (-(-n // t)) ** 2 * sum(passes) * bmp
+        if fits and (best is None or per_image < best_rows):
+            stages, area1 = fits[0]  # the most ring stages, the A ring past region 1 if need be
+            best, best_rows = ChainPlan(route, bn, mt, t, pitch, prow, passes, rpx, rpx * 16,
+                                        region, area1, stages,
+                                        fixed + region + area1 + stages * b_stage), per_image
+    if best is None:
+        raise ValueError(f"K10's wgmma chain does not fit: 4C {c4s}, 4Cm {c4m}")
+    return best
+
+
+def chain_ints(p: ChainPlan) -> list[int]:
+    """The plan in the layout of the library's ``depgan_chain_plan``."""
+    return [ROUTES.index(p.route), p.bn, p.mt, p.tile, p.pitch, *p.prow, *p.passes, p.rpx,
+            p.lead, p.region, p.area1, p.stages, p.smem]
+
+
+def library_chain_plan(n: int, c4s: tuple[int, ...], c4m: int, c4o: int,
+                       pool: str = "") -> list[int]:
+    """The built library's own K10 plan (``depgan_chain_plan``), in the
+    layout of ``chain_ints``: needs the library."""
+    import ctypes
+
+    from . import _cuda
+
+    buf = (ctypes.c_int * 17)()
+    wrote = _cuda.library().depgan_chain_plan(n, c4s[0], c4s[1] if len(c4s) > 1 else 0, c4m,
+                                              c4o, POOLS[pool], buf, 17)
+    if wrote < 0:
+        raise ValueError(f"depgan_chain_plan refused n {n}, 4C {c4s}, 4Cm {c4m}, 4Co {c4o}, "
+                         f"pool {pool!r}")
+    return list(buf[:wrote])
+
+
+def run_chain(p: ChainPlan, planes: list[torch.Tensor], w0s: list[torch.Tensor], b0, w1, b1,
+              gamma, beta, w2, b2, pool: str = "", junk: float = float("nan")) -> dict:
+    """K10's stages as the kernel runs them, in plain torch: each tile in
+    walk order; stage 0's A from the planes by its load plan's runs (the
+    TMA boxes or cp.async copies: zeros off the plane), stages 1 and 2 from
+    the previous region, flattened at the plan's pitch, at + dy * pitch + dx
+    pixels of each 16-deep step; every pass of 128 * mt GEMM rows in full,
+    its rows past the pass not stored; float32 sums rounded to the planes'
+    dtype where the kernel stores. Region pixels no stage writes hold
+    ``junk``. Returns ``out`` (its ring and every position no tile stores
+    left NaN), ``pooled`` (None without a pool), ``stores`` (how often each
+    output position was stored) and ``regions`` (each tile's (b, Y0, X0),
+    region 0 and region 1, flattened (pixels, 4Cm), after the tile)."""
+    dt = planes[0].dtype
+    b, side = planes[0].shape[0], planes[0].shape[1]
+    n, T, pitch, c4m = side - 2, p.tile, p.pitch, p.bn
+    bmp = BM * p.mt
+    ts = -(-n // T)
+    padded = [F.pad(x.float(), (0, 0, 3, 3 + bmp, 3, 3 + bmp)) for x in planes]  # zeros off it
+    runs = [(o, *chunk(x.shape[-1], k0)) for o, x in enumerate(planes)
+            for k0 in range(0, 4 * x.shape[-1], VEC)]
+    steps = [chunk(c4m, k0) for k0 in range(0, 4 * c4m, 16)]
+    w0 = torch.cat([w.float().reshape(-1, c4m) for w in w0s])
+    mats = (w0, w1.float().reshape(-1, c4m), w2.float().reshape(-1, c4m))
+    biases = (b0.float(), b1.float(), b2.float())
+    out = torch.full((b, side, side, c4m), float("nan"))
+    stores = torch.zeros((b, side, side), dtype=torch.int32)
+    pooled_store = []
+    regions = []
+    region = [torch.full((p.rpx, c4m), junk), torch.full((p.rpx, c4m), junk)]
+    for tile in range(b * ts * ts):
+        bb, r = divmod(tile, ts * ts)
+        y0, x0 = 1 + r // ts * T, 1 + r % ts * T
+        for s in range(3):
+            for pss in range(p.passes[s]):
+                f0 = pss * p.prow[s] * pitch
+                live = min(p.prow[s], chain_rows(T, s) - pss * p.prow[s]) * pitch
+                f = torch.arange(f0, f0 + bmp)
+                ry, rx = f // pitch, f % pitch
+                yp, xp = y0 - 2 + s + ry, x0 - 2 + s + rx
+                if s == 0:  # the box rows of the pass; rows past them are not stored
+                    cols = [padded[o][bb, yp - 1 + dy + 3, xp - 1 + dx + 3, c:c + VEC]
+                            for o, c, dx, dy in runs]
+                else:
+                    prev = region[s - 1]
+                    cols = []
+                    for c, dx, dy in steps:
+                        at = f + dy * pitch + dx
+                        if int(at.max()) >= p.rpx:
+                            raise ValueError(f"stage {s} reads past region {s - 1}")
+                        cols.append(prev[at, c:c + 16])
+                y = torch.cat(cols, dim=1) @ mats[s] + biases[s]
+                stored = torch.arange(bmp) < live
+                inside = (yp >= 1) & (yp <= n) & (xp >= 1) & (xp <= n)
+                keep = inside & (rx < T + 4 - 2 * s) & stored
+                if s == 0:
+                    val = torch.relu(y)
+                elif s == 1:
+                    trunk = region[0][f + pitch + 1].float()
+                    val = trunk + torch.relu(y * gamma[bb].float() + beta[bb].float())
+                else:
+                    val = torch.relu(y)
+                val = val.to(dt).float()
+                if s < 2:
+                    region[s][f[stored]] = torch.where(keep[:, None], val, 0.0)[stored]
+                    continue
+                out[bb, yp[keep], xp[keep]] = val[keep]
+                stores[bb, yp[keep], xp[keep]] += 1
+                if pool:
+                    groups = val[keep].reshape(-1, 4, c4m // 4).amax(dim=1)
+                    pooled_store.append((bb, yp[keep] - 1, xp[keep] - 1, groups))
+        regions.append(((bb, y0, x0), region[0].clone(), region[1].clone()))
+    out[:, 0] = out[:, -1] = 0.0
+    out[:, :, 0] = out[:, :, -1] = 0.0
+    pooled = None
+    if pool == "pixel":
+        pooled = torch.full((b, n, n, c4m // 4), float("nan"))
+        for bb, oy, ox, v in pooled_store:
+            pooled[bb, oy, ox] = v
+    elif pool == "s2d":
+        half = n // 2 + 2
+        pooled = torch.zeros((b, half, half, c4m))
+        pooled[:, 1:half - 1, 1:half - 1] = float("nan")
+        cp = c4m // 4
+        for bb, oy, ox, v in pooled_store:
+            for j in range(len(oy)):
+                y, x = int(oy[j]), int(ox[j])
+                g = 2 * (y & 1) + (x & 1)
+                pooled[bb, y // 2 + 1, x // 2 + 1, g * cp:(g + 1) * cp] = v[j]
+    return {"out": out.to(dt), "pooled": None if pooled is None else pooled.to(dt),
+            "stores": stores, "regions": regions}

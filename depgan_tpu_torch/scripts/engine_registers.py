@@ -2,8 +2,10 @@
 frame and spill bytes of every ``s2d_gemm`` instantiation (dtype, N tile,
 phase), from ``nvcc -Xptxas -v``; ``wgmma_figures`` reads the same for the
 wgmma mainloop of K1, K2, K3, K7 and P1 (``s2d_wgmma``: N tile, m64 tiles a
-consumer warpgroup, K2's pooled epilogue or not, production or a P1 phase)
-and for P2's window kernel on it (``rowblk_wgmma``: N tile, m64 tiles).
+consumer warpgroup, K2's pooled epilogue or not, production or a P1 phase),
+for P2's window kernel on it (``rowblk_wgmma``: N tile, m64 tiles), for
+K11's (``conv5_wgmma``: N tile, m64 tiles) and for K10's chain
+(``chain_wgmma``: N tile, m64 tiles, K2's pooled epilogue or not).
 
 With no argument it reads the report kept beside the port's built library
 (``ops/_cuda.py``). Given source directories (another checkout's
@@ -24,7 +26,8 @@ from pathlib import Path
 
 _NAME = re.compile(r"8s2d_gemmI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?E")
 _WGMMA = re.compile(r"9s2d_wgmmaILi(\d+)ELi(\d+)ELb([01])ELi(\d+)EE")
-_ROWBLK = re.compile(r"12rowblk_wgmmaILi(\d+)ELi(\d+)EE")
+_ROWBLK = re.compile(r"(12rowblk_wgmma|11conv5_wgmma)ILi(\d+)ELi(\d+)EE")
+_CHAIN = re.compile(r"11chain_wgmmaILi(\d+)ELi(\d+)ELb([01])EE")
 PHASE_NAMES = {0: "production", 1: "probe full", 2: "probe no_epi", 3: "probe matmul_only",
                4: "probe stage_only"}
 
@@ -42,17 +45,22 @@ def engine_figures(log: str) -> dict[tuple, dict[str, int]]:
     return dict(sorted(rows.items()))
 
 
-def wgmma_name(bn: int, mt: int, pool: bool | None = None, phase: int = 0) -> str:
-    """An instantiation's name: ``s2d_wgmma<BN, MT, POOL, phase>``, or
-    ``rowblk_wgmma<BN, MT>`` where ``pool`` is None."""
-    if pool is None:
-        return f"rowblk_wgmma<{bn}, {mt}>"
+def wgmma_name(bn: int, mt: int, pool: bool | None = None, phase: int = 0,
+               kernel: str = "") -> str:
+    """An instantiation's name: ``s2d_wgmma<BN, MT, POOL, phase>``,
+    ``rowblk_wgmma<BN, MT>`` where ``pool`` is None, or the ``kernel``
+    named: ``conv5_wgmma<BN, MT>``, ``chain_wgmma<BN, MT, POOL>``."""
+    if kernel == "chain_wgmma":
+        return f"chain_wgmma<{bn}, {mt}, {str(pool).lower()}>"
+    if kernel or pool is None:
+        return f"{kernel or 'rowblk_wgmma'}<{bn}, {mt}>"
     return f"s2d_wgmma<{bn}, {mt}, {str(pool).lower()}, {PHASE_NAMES[phase]}>"
 
 
 def wgmma_figures(log: str) -> dict[str, dict[str, int]]:
     """``wgmma_name`` -> registers, stack, spill stores and loads of each
-    ``s2d_wgmma`` and ``rowblk_wgmma`` kernel in a ptxas ``-v`` report."""
+    ``s2d_wgmma``, ``rowblk_wgmma``, ``conv5_wgmma`` and ``chain_wgmma``
+    kernel in a ptxas ``-v`` report."""
     from depgan_tpu_torch.ops._cuda import ptxas_figures
 
     rows = {}
@@ -61,7 +69,10 @@ def wgmma_figures(log: str) -> dict[str, dict[str, int]]:
             rows[wgmma_name(int(m.group(1)), int(m.group(2)), m.group(3) == "1",
                             int(m.group(4)))] = fig
         elif m := _ROWBLK.search(name):
-            rows[wgmma_name(int(m.group(1)), int(m.group(2)))] = fig
+            rows[wgmma_name(int(m.group(2)), int(m.group(3)), kernel=m.group(1)[2:])] = fig
+        elif m := _CHAIN.search(name):
+            rows[wgmma_name(int(m.group(1)), int(m.group(2)), m.group(3) == "1",
+                            kernel="chain_wgmma")] = fig
     return dict(sorted(rows.items()))
 
 

@@ -181,11 +181,18 @@ CHAIN_CASES = {
     "chain2_film_none": dict(b=2, n=11, c4a=64, c4m=64, c4o=32, modes=("film", "none")),
     "head": dict(b=2, n=12, c4a=64, c4m=128, h4=4),
 }
+# bfloat16 K10 runs the wgmma chain, which takes 4Cm = 4Co of 128 or 256: its
+# widths where a float32 case's are others (ragged n against the plan's T x T
+# tiles stays). The float32 widths run in bfloat16 through the old route
+# (s2d_chain), which still takes them.
+CHAIN3_WGMMA_WIDTHS = {"chain3_pool_s2d": dict(c4m=128, c4o=128),
+                       "chain3_two_operand": dict(c4m=128, c4o=128)}
 
 
-def _chain_case(a, dtype, device, seed=0):
+def _chain_case(a, dtype, device, seed=0, old_route=False):
     """(launch counter name, kernel call, plain call, the sequential kernels'
-    call or None) on inputs made from ``seed``."""
+    call or None) on inputs made from ``seed``; with ``old_route`` K10's
+    call is ``probes.conv3x3_chain3_wmma``, which counts no launch."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, std=1.0, mean=0.0):
@@ -231,8 +238,9 @@ def _chain_case(a, dtype, device, seed=0):
             return K.conv3x3_s2d_fused_pool(h, *args[7:], pool=pool)
         return K._conv3x3_s2d_impl(h, *args[7:])
 
+    chain3 = probes.conv3x3_chain3_wmma if old_route else K.conv3x3_s2d_chain3
     return ("conv3x3_s2d_chain3",
-            lambda: K.conv3x3_s2d_chain3(*args, x2_padded=x2, w1b4=w1b, pool=pool),
+            lambda: chain3(*args, x2_padded=x2, w1b4=w1b, pool=pool),
             lambda: K.conv3x3_s2d_chain3_plain(*args, x2, w1b, pool), sequential)
 
 
@@ -264,15 +272,24 @@ def test_chain_and_head_kernels_match_plain(cuda, case, dtype):
     rounding ties; bf16 atol = rtol = 1e-2), rings exactly zero, and the
     chains against the sequential kernels on the same inputs: bit for bit,
     the chain summing each product in the engine's order and rounding where
-    the sequential kernels store."""
+    the sequential kernels store. bfloat16 K10 runs at the wgmma chain's
+    widths, and the old route at the case's own."""
     dt = getattr(torch, dtype)
     a = CHAIN_CASES[case]
-    name, kernel, plain, sequential = _chain_case(a, dt, cuda)
+    if dt == torch.bfloat16 and "c4o" in a and "modes" not in a:
+        _check_chain_case(dict(a, **CHAIN3_WGMMA_WIDTHS.get(case, {})), dt, cuda)
+        _check_chain_case(a, dt, cuda, old_route=True)
+    else:
+        _check_chain_case(a, dt, cuda)
+
+
+def _check_chain_case(a, dt, cuda, old_route=False):
+    name, kernel, plain, sequential = _chain_case(a, dt, cuda, old_route=old_route)
     before = K.launches()[name]
     with torch.no_grad():
         out = kernel()
     torch.cuda.synchronize()
-    assert K.launches()[name] == before + 1
+    assert K.launches()[name] == before + (0 if old_route else 1)
     outs, refs = (out if isinstance(out, tuple) else (out,)), plain()
     refs = refs if isinstance(refs, tuple) else (refs,)
     for j, (o, r) in enumerate(zip(outs, refs)):
@@ -300,6 +317,14 @@ def test_chain_and_head_wrappers_refuse_on_cuda(cuda):
         K.conv3x3_s2d_chain3(x, w, v, w, v, gb, gb, w, v)
     with pytest.raises(ValueError, match="multiple of 32"):
         K.conv3x3_s2d_chain2(x, w, v, w, v, gb, gb)
+    # bfloat16 K10 takes 4Cm = 4Co of 128 or 256 and never falls back
+    x = K.pad_s2d(torch.randn(2, 8, 8, 64, device=cuda)).bfloat16()
+    w = torch.randn(2, 2, 64, 64, device=cuda).bfloat16()
+    v, gb = torch.zeros(64, device=cuda), torch.zeros(2, 64, device=cuda)
+    before = K.launches()
+    with pytest.raises(ValueError, match="wgmma chain"):
+        K.conv3x3_s2d_chain3(x, w, v, w, v, gb, gb, w, v)
+    assert K.launches() == before
     x = K.pad_s2d(torch.randn(2, 8, 8, 32, device=cuda))
     with pytest.raises(ValueError, match="4Co <= 256"):
         K.conv3x3_s2d_fused_head(x, torch.zeros(2, 2, 32, 512, device=cuda),
@@ -587,20 +612,28 @@ def packed():
 def test_conv5_packed_matches_plain_and_k7(cuda, packed, case, dtype):
     """K11 against the plain version (f32 atol 1e-4, bf16 atol = rtol =
     1e-2), its ring exactly zero, and against K7 on the same inputs bit for
-    bit: both sum each product in the engine's order."""
+    bit: both sum each product in the engine's order. bfloat16 widths the
+    wgmma window does not take (4C 24, 4Co 136) launch K7 by the width rule,
+    and the old route (window_conv) equals K7 there."""
     dt = getattr(torch, dtype)
     b, n, c4, co4, mode = PACKED_CASES[case]
     _, _, plain, inputs, kwargs = _case("conv5", dict(b=b, n=n, c4=c4, co4=co4, mode=mode), dt,
                                         cuda)
+    name = K.conv5_kernel_name(c4, co4, n, dt)
+    other = ({"conv5x5_s2d_fused[packed]", "conv5x5_s2d_fused"} - {name}).pop()
+    assert (name == "conv5x5_s2d_fused") == (dt == torch.bfloat16 and (c4 % 16 != 0 or co4 > 256))
     before = K.launches()
     out = K._conv5_impl(*inputs, **kwargs)
     torch.cuda.synchronize()
     after = K.launches()
-    assert after["conv5x5_s2d_fused[packed]"] == before["conv5x5_s2d_fused[packed]"] + 1
-    assert after["conv5x5_s2d_fused"] == before["conv5x5_s2d_fused"]
+    assert after[name] == before[name] + 1
+    assert after[other] == before[other]
     torch.testing.assert_close(out.float(), plain(*inputs, **kwargs).float(), atol=TOL[dt],
                                rtol=TOL[dt])
     assert _ring_zero(out)
+    if name == "conv5x5_s2d_fused":
+        torch.testing.assert_close(probes.conv5x5_packed_mma_sync(*inputs, **kwargs), out,
+                                   atol=0, rtol=0)
     K.CONV5_PACKED = False
     torch.testing.assert_close(out, K._conv5_impl(*inputs, **kwargs), atol=0, rtol=0)
 
@@ -878,3 +911,108 @@ def test_wgmma_library_plan_matches_python(cuda):
         for n in (8, 12, 16, 64, 128):
             assert wgmma_plan.library_plan(n, c4s, co4, **kind) == wgmma_plan.as_ints(
                 wgmma_plan.plan(n, c4s, co4, **kind))
+
+
+# bf16 K11 on the wgmma window against K7 at small n: (4C, 4Co, mode); at
+# 4Co 256 all of B does not fit and streams through the B ring.
+K11_WINDOW_WIDTHS = ((16, 64, "relu"), (16, 16, "none"), (64, 64, "relu"), (64, 128, "relu"),
+                     (64, 16, "none"), (64, 128, "none"), (64, 256, "relu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c4,co4,mode", K11_WINDOW_WIDTHS)
+def test_conv5_window_equals_k7(cuda, packed, c4, co4, mode):
+    """bf16 K11 (the wgmma window) against the plain version (bf16
+    tolerances, rings exactly zero on outputs whose memory held NaNs) and
+    against K7 on the same inputs, bit for bit, at n 8 (two tiles an image,
+    rows past the plane), 12 (a tail tile) and 16; so does the old route
+    (window_conv), which counts no launch. The library's window equals
+    ``ops/wgmma_plan.py``."""
+    for n in (8, 12, 16):
+        xs, ws, bias, _ = _wgmma_inputs((c4,), co4, f"conv5 {mode}", n, cuda)
+        args = (xs[0], ws[0], bias)
+        ref = K.conv5x5_s2d_fused_plain(*args, mode=mode)
+        poison = torch.full(ref.shape, float("nan"), dtype=ref.dtype, device=cuda)
+        del poison  # the kernel's output likely reuses this NaN-filled memory
+        before = K.launches()
+        out = K._conv5_impl(*args, mode=mode)
+        torch.cuda.synchronize()
+        after = K.launches()
+        assert after["conv5x5_s2d_fused[packed]"] == before["conv5x5_s2d_fused[packed]"] + 1
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        assert _ring_zero(out)
+        old = probes.conv5x5_packed_mma_sync(*args, mode=mode)
+        K.CONV5_PACKED = False
+        k7 = K._conv5_impl(*args, mode=mode)
+        K.CONV5_PACKED = True
+        assert K.launches()["conv5x5_s2d_fused[packed]"] == after["conv5x5_s2d_fused[packed]"]
+        diff = float((out.float() - k7.float()).abs().max())
+        print(f"K11 window n {n} {c4}->{co4} {mode}: max abs {diff:.3e} from K7")
+        assert diff == 0.0 and torch.equal(old, k7)
+        assert wgmma_plan.library_conv5_window(n, c4, co4) == (
+            wgmma_plan.conv5_window_ints(wgmma_plan.conv5_window(n, c4, co4)))
+
+
+# bf16 K10 on the wgmma chain at small n, one case a site kind: (n, stage-0
+# 4C, 4Cm, pool). m1's 4C 32 takes cp.async; n 14 at 4Cm 128 (T 12) and 10 or
+# 12 at 4Cm 256 (T 8) leave tail tiles.
+CHAIN_WGMMA_SITES = {"m1": (14, (32,), 128, "s2d"), "m2": (10, (128,), 256, "pixel"),
+                     "p2": (12, (128, 64), 256, ""), "p1": (14, (64, 32), 128, ""),
+                     "m2_one_tile": (8, (128,), 256, "pixel")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", sorted(CHAIN_WGMMA_SITES))
+def test_chain3_wgmma_equals_sequential(cuda, site):
+    """bf16 K10 (the wgmma chain) against the plain version (bf16
+    tolerances, rings exactly zero on outputs whose memory held NaNs) and
+    against the sequential kernels on the same inputs (K1 or K3 -> K1 film
+    -> K1 or K2 on the mainloop), bit for bit; so does the old route
+    (s2d_chain), which counts no launch. The library's plan equals
+    ``ops/wgmma_plan.py``."""
+    n, c4s, c4m, pool = CHAIN_WGMMA_SITES[site]
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=g, device=cuda) * std + mean
+
+    def w4(ci, co):
+        return randn(2, 2, ci, co, std=(4 * ci) ** -0.5).bfloat16()
+
+    xs = [K.pad_s2d(randn(2, n, n, c4)).bfloat16() for c4 in c4s]
+    w0s = [w4(c4, c4m) for c4 in c4s]
+    args = (xs[0], w0s[0], randn(c4m, std=0.1), w4(c4m, c4m), randn(c4m, std=0.1),
+            randn(2, c4m, std=0.3, mean=1.0), randn(2, c4m, std=0.3), w4(c4m, c4m),
+            randn(c4m, std=0.1))
+    extra = dict(x2_padded=xs[1] if len(xs) > 1 else None,
+                 w1b4=w0s[1] if len(xs) > 1 else None, pool=pool)
+    ref = K.conv3x3_s2d_chain3_plain(*args, extra["x2_padded"], extra["w1b4"], pool)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    poison = [torch.full(r.shape, float("nan"), dtype=r.dtype, device=cuda) for r in refs]
+    del poison
+    before = K.launches()["conv3x3_s2d_chain3"]
+    with torch.no_grad():
+        out = K.conv3x3_s2d_chain3(*args, **extra)
+        torch.cuda.synchronize()
+        assert K.launches()["conv3x3_s2d_chain3"] == before + 1
+        old = probes.conv3x3_chain3_wmma(*args, **extra)
+        x, x2 = xs[0], extra["x2_padded"]
+        h = (K._conv3x3_s2d_impl(x, *args[1:3]) if x2 is None
+             else K._conv2_impl(x, x2, args[1], extra["w1b4"], args[2]))
+        h = K._conv3x3_s2d_impl(h, *args[3:7], mode="film")
+        seq = (K.conv3x3_s2d_fused_pool(h, *args[7:], pool=pool) if pool
+               else K._conv3x3_s2d_impl(h, *args[7:]))
+    assert K.launches()["conv3x3_s2d_chain3"] == before + 1
+    outs, olds = (out, old) if pool else ((out,), (old,))
+    seqs = seq if pool else (seq,)
+    diff = 0.0
+    for j, (o, r, q, o2) in enumerate(zip(outs, refs, seqs, olds)):
+        torch.testing.assert_close(o.float(), r.float(), atol=1e-2, rtol=1e-2)
+        if j == 0 or pool == "s2d":
+            assert _ring_zero(o)
+        diff = max(diff, float((o.float() - q.float()).abs().max()))
+        assert torch.equal(o2, q)
+    print(f"K10 wgmma {site} n {n} {c4s}->{c4m}: max abs {diff:.3e} from the sequential kernels")
+    assert diff == 0.0
+    assert wgmma_plan.library_chain_plan(n, c4s, c4m, c4m, pool) == wgmma_plan.chain_ints(
+        wgmma_plan.chain_plan(n, c4s, c4m, c4m, pool))
