@@ -8,12 +8,13 @@
    the registers, stack frame and spill bytes that ptxas gave every
    instantiation of the GEMM engine (``s2d_gemm``), the production ones
    held to ENGINE_FIGURES, and of the bf16 wgmma mainloop of K1, K2, K3,
-   K7 and P1's phases (``s2d_wgmma``), of P2's window kernel on it
-   (``rowblk_wgmma``), of bf16 K11's window (``conv5_wgmma``) and of bf16
-   K10's chain (``chain_wgmma``), held to WGMMA_FIGURES; the library's own
-   A-load plan of every K1, K2, K3 and K7 shape, with the route it takes
-   (TMA boxes or cp.async), P2's window, K11's window and K10's plan at
-   their shapes, held to ``ops/wgmma_plan.py``.
+   K7, K9 (its head epilogue) and P1's phases (``s2d_wgmma``), of P2's
+   window kernel on it (``rowblk_wgmma``), of bf16 K11's window
+   (``conv5_wgmma``), of bf16 K10's chain (``chain_wgmma``) and of bf16
+   K4's deconv (``deconv_wgmma``), held to WGMMA_FIGURES; the library's own
+   A-load plan of every K1, K2, K3, K7 and K9 shape, with the route it takes
+   (TMA boxes or cp.async), P2's window, K11's window, K10's plan and K4's
+   plan at their shapes, held to ``ops/wgmma_plan.py``.
 2. Kernels: each kernel against its plain PyTorch version at every shape of
    the serving forward and the training superstep (256x256 slices,
    first_fm 32, batch 4), in float32 (atol 1e-4: the indexing) and in
@@ -32,8 +33,10 @@
    count (bfloat16, equal to K1 bit for bit), P3 equal to its plain version;
    bf16 P1 and P2 run the wgmma mainloop, bf16 K11 the wgmma window and
    bf16 K10 the wgmma chain.
-   In bfloat16, K1, K2 (both outputs), K3 and K7, which run the wgmma
-   mainloop, equal the engine's kernel on the same inputs bit for bit.
+   In bfloat16, K1, K2 (both outputs), K3, K7 and K9, which run the wgmma
+   mainloop, and K4, which runs the wgmma deconv, equal the engine's kernel
+   on the same inputs bit for bit; K4 also at the superstep's and the
+   serving forward's batches (16, 42).
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
    two synthetic 42-slice subjects against the plain float32 generator with
    the same noise (max abs diff < 0.05), once more with the UResNet softmax
@@ -86,7 +89,7 @@
    plain version and the library call that computes the same function,
    beside the bound, each timed on the device over launches captured in
    a CUDA graph that rotate over input copies of twice the L2's size, K1,
-   K2, K3 and K7 in turns with the engine's kernel at the same shape
+   K2, K3, K4, K7 and K9 in turns with the engine's kernel at the same shape
    (engine, wgmma, wgmma, engine); the serving forward's kernels at batch 42
    and ms per
    served subject; K9 and K10 at the serving options' shapes per forward
@@ -175,7 +178,8 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
 PEAK_F32 = 67e12  # H100 SXM float32 outside the tensor cores (K8's arithmetic)
 PALLAS = "depgan_tpu/ops/conv_s2d_pallas.py"
 GEMM_SRC = "depgan_tpu_torch/csrc/s2d_kernels.cu"  # entry points; engine in s2d_gemm.cuh
-WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_kernels.cu"  # bf16 K1, K2, K3 and K7
+WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_kernels.cu"  # bf16 K1, K2, K3, K7 and K9
+DECONV_WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_deconv.cu"  # bf16 K4
 CONV5_WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_conv5.cu"  # bf16 K11
 CHAIN_WGMMA_SRC = "depgan_tpu_torch/csrc/wgmma_chain.cu"  # bf16 K10
 POOL_SRC = "depgan_tpu_torch/csrc/pool_kernels.cu"
@@ -190,12 +194,12 @@ KERNELS = {
     "conv3x3_s2d_fused[none]": (WGMMA_SRC, f"{PALLAS}:758"),
     "conv3x3_s2d_fused_pool": (WGMMA_SRC, f"{PALLAS}:1043"),
     "conv3x3_s2d_fused2": (WGMMA_SRC, f"{PALLAS}:1289"),
-    "deconv_s2d": (GEMM_SRC, f"{PALLAS}:408"),
+    "deconv_s2d": (DECONV_WGMMA_SRC, f"{PALLAS}:408"),
     "pool_to_s2d": (POOL_SRC, f"{PALLAS}:283"),
     "pool_s2d": (POOL_SRC, f"{PALLAS}:198"),
     "conv5x5_s2d_fused": (WGMMA_SRC, f"{PALLAS}:1918"),
     "film_residual": (FILM_SRC, "depgan_tpu/ops/film_pallas.py:58"),
-    "conv3x3_s2d_fused_head": (GEMM_SRC, f"{PALLAS}:1145"),
+    "conv3x3_s2d_fused_head": (WGMMA_SRC, f"{PALLAS}:1145"),
     "conv3x3_s2d_chain3": (CHAIN_WGMMA_SRC, f"{PALLAS}:1741"),
     "conv3x3_s2d_chain2": (CHAIN_SRC, f"{PALLAS}:1511"),
     "conv5x5_s2d_fused[packed]": (CONV5_WGMMA_SRC, f"{PALLAS}:1940"),
@@ -232,7 +236,10 @@ ENGINE_FIGURES = {
 # where six slots do not fit). K11's window (conv5_wgmma: N tile, m64 tiles)
 # runs (64, 2) and (128, 2) at the critic's shapes, (192, 1) and (256, 1)
 # above 4Co 128; K10's chain (chain_wgmma: N tile, m64 tiles, pool) runs
-# (128, 2) at level 1 and (256, 1) at level 2, pooled at m1 and m2.
+# (128, 2) at level 1 and (256, 1) at level 2, pooled at m1 and m2. K9's
+# head epilogue (s2d_wgmma's HEAD) runs (128, 2) at p1, the other five at
+# other 4Co; K4's deconv (deconv_wgmma: N tile) runs 256 at the generator's
+# p2 -> p1, 64 at first_fm 8, 128 and 192 at other 4O.
 WGMMA_FIGURES = {
     **{(bn, mt, pool, 0): (168, 0, 0, 0)
        for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))
@@ -245,6 +252,9 @@ WGMMA_FIGURES = {
        for bn, mt in ((64, 2), (128, 2), (192, 1), (256, 1))},
     **{(bn, mt, pool, 0, "chain_wgmma"): (168, 0, 0, 0)
        for bn, mt in ((128, 2), (256, 1)) for pool in (False, True)},
+    **{(bn, mt, False, 0, "", True): (168, 0, 0, 0)
+       for bn, mt in ((64, 1), (128, 1), (192, 1), (256, 1), (64, 2), (128, 2))},
+    **{(bn, 0, None, 0, "deconv_wgmma"): (168, 0, 0, 0) for bn in (64, 128, 192, 256)},
 }
 WGMMA_KERNELS = ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]", "conv3x3_s2d_fused_pool",
                  "conv3x3_s2d_fused2", "conv5x5_s2d_fused")
@@ -317,6 +327,9 @@ PROBE_CASES = tuple((f"kernel_anatomy[{phase}]", "L2 check 128->128 reps 2", (64
     ("deint_reshape_idx", "32 rows 16 col-pairs c 32", (32, 16, 32)),
     ("deint_merge", "32 rows 16 col-pairs c 32", (32, 16, 32)))
 CASE_DTYPES = {"conv3x3_rowblk": (torch.bfloat16,)}
+# Batches of a kernel's checks other than BATCH_CHECK alone: K4 at the
+# superstep's and the serving forward's too, as each runs it.
+CASE_BATCHES = {"deconv_s2d": (BATCH_CHECK, BATCH_TRAIN, BATCH_SERVE)}
 # The probes' entry points at the JAX scripts' default batches.
 PROBE_BATCH = {"kernel_anatomy": 64, "rowblk_probe": 64, "packed_tap_probe": 256}
 # K9, K10 and K12 at the serving forward's shapes: K9 at p1's conv_out
@@ -398,8 +411,8 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         return sum(p.numel() // p.shape[1] ** 2 * (p.shape[1] - 2) ** 2 * p.element_size()
                    for p in planes)
 
-    # K1, K2, K3 and K7 also carry the engine's kernel on the same inputs
-    # (``engine``): what they launched in bfloat16 before the wgmma mainloop;
+    # K1, K2, K3, K4, K7 and K9 also carry the engine's kernel on the same
+    # inputs (``engine``): what they launched in bfloat16 before the wgmma kernels;
     # bf16 P1, P2, K10 and K11 their routes before it (``old``), timed, not
     # compared.
 
@@ -457,6 +470,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
         args = (plane(m, c4), w2.to(dtype), bias.repeat(4))
         case["kernel"] = lambda: K._deconv_impl(*args)
         case["plain"] = lambda: K.deconv_s2d_plain(*args)
+        case["engine"] = lambda: P.deconv_engine(*args)
         xp = pixel(args[0])
         wt = w2.reshape(c, 2, 2, o4 // 4).permute(0, 3, 1, 2).contiguous().to(dtype)
         bl = bias.to(dtype)
@@ -504,6 +518,7 @@ def make_case(name: str, problem: tuple, dtype, seed: int) -> dict:
                 b1.contiguous())
         case["kernel"] = lambda: K.conv3x3_s2d_fused_head(*args)
         case["plain"] = lambda: K.conv3x3_s2d_fused_head_plain(*args)
+        case["engine"] = lambda: P.conv3x3_head_engine(*args)
         case["slack"] = lambda: head_rounding_slack(*args[:4])
         case["padded"] = (False,)
         case["flops"] = 2.0 * b * (2 * n) ** 2 * (9 * c * co + co * ho)
@@ -676,14 +691,18 @@ def check_kernels() -> dict[str, float]:
     sum); P1's full and matmul_only and P2 must equal K1 on the same inputs
     bit for bit, and K11 K7. In bfloat16, K1,
     K2 (both outputs), K3 and K7 must equal the engine's kernel on the same
-    inputs bit for bit: the wgmma mainloop sums in the engine's order."""
+    inputs bit for bit: the wgmma mainloop sums in the engine's order; so
+    must K9 (the mainloop's head epilogue) and K4 (the wgmma deconv, at each
+    batch of CASE_BATCHES)."""
     worst: dict[str, float] = {}
     for i, (name, label, problem) in enumerate(KERNEL_CASES):
         dtypes = CASE_DTYPES.get(name, (torch.float32, torch.bfloat16))
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        for batch, dtype, tol in ((batch, dtype, tol)
+                                  for batch in CASE_BATCHES.get(name, (BATCH_CHECK,))
+                                  for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2))):
             if dtype not in dtypes:
                 continue
-            case = make_case(name, (BATCH_CHECK, *problem), dtype, seed=i)
+            case = make_case(name, (batch, *problem), dtype, seed=i)
             ref = case["plain"]()
             ref = ref if isinstance(ref, tuple) else (ref,)
             poison_allocator([r.shape for r in ref], dtype)
@@ -726,13 +745,13 @@ def check_kernels() -> dict[str, float]:
             for ref_kernel in ("k1", "k7", "engine"):
                 if ref_kernel in case and (ref_kernel != "engine" or dtype == torch.bfloat16):
                     seq = f", {against_kernel(name, label, dtype, out, case, ref_kernel)}"
-            print(f"kernel {name} [{label}] {str(dtype)[6:]}: max abs err {err:.3e} "
-                  f"({bound}){rings}{seq}")
+            print(f"kernel {name} [{label}] batch {batch} {str(dtype)[6:]}: max abs err "
+                  f"{err:.3e} ({bound}){rings}{seq}")
     return worst
 
 
 SEQUENTIAL_DIFF: dict[str, float] = {}  # chain -> largest difference from its sequential kernels
-KERNEL_DIFF: dict[str, float] = {}  # K11 / P1, P2 / K1-K3, K7 -> from K7 / K1 / the engine
+KERNEL_DIFF: dict[str, float] = {}  # K11 / P1, P2 / K1-K4, K7, K9 -> from K7 / K1 / the engine
 KERNEL_CASES = (SERVING_CASES + TRAINING_CASES + FILM_CASES + OPTION_CASES + PACKED_CASES
                 + PROBE_CASES)
 
@@ -741,10 +760,10 @@ def against_kernel(name: str, label: str, dtype, out: tuple, case: dict,
                    ref_kernel: str) -> str:
     """A kernel's outputs against the kernel that computes the same function
     on the same inputs in the same order (K7 for K11, K1 for P1 and P2, the
-    engine's kernel for bf16 K1, K2, K3 and K7): the largest abs difference,
-    recorded in KERNEL_DIFF. Each must be 0 (K2 both its outputs): P1 and P2
-    equal K1, K11 (the wgmma window in bf16, window_conv in float32) K7, and
-    the wgmma kernels the engine, bit for bit."""
+    engine's kernel for bf16 K1, K2, K3, K4, K7 and K9): the largest abs
+    difference, recorded in KERNEL_DIFF. Each must be 0 (K2 both its
+    outputs): P1 and P2 equal K1, K11 (the wgmma window in bf16, window_conv
+    in float32) K7, and the wgmma kernels the engine, bit for bit."""
     ref = case[ref_kernel]()
     ref = ref if isinstance(ref, tuple) else (ref,)
     torch.cuda.synchronize()
@@ -789,10 +808,10 @@ def time_case(name: str, problem: tuple, dtype, seed: int) -> dict:
     values from the same seed, buffers of their own) whose bytes together
     exceed twice the L2, so no launch finds its inputs in L2 from the launch
     before. The plain version, no yardstick of speed, runs on one copy. K1,
-    K2, K3 and K7 also time the engine's kernel on the same copies, in turns
-    with the wgmma mainloop (engine, kernel, kernel, engine): ``ms`` and
-    ``engine_ms`` are the faster of each pair, ``turns_ms`` all four; bf16
-    P1, P2, K10 and K11 so their old routes (``old_ms``)."""
+    K2, K3, K4, K7 and K9 also time the engine's kernel on the same copies,
+    in turns with the wgmma kernel (engine, kernel, kernel, engine): ``ms``
+    and ``engine_ms`` are the faster of each pair, ``turns_ms`` all four;
+    bf16 P1, P2, K10 and K11 so their old routes (``old_ms``)."""
     from depgan_tpu_torch.utils.profiling import cuda_graph_ms
 
     first = make_case(name, problem, dtype, seed)
@@ -1653,6 +1672,24 @@ def check_engine_build(_cuda) -> None:
               f"{name} {label}: the library's wgmma plan differs from ops/wgmma_plan.py")
         print(f"build: wgmma plan {name} [{label}]: route {plan.route}, tile {plan.bm} x "
               f"{plan.bn}, {plan.n_blocks} column block(s), A box {plan.box}")
+    for name, label, problem in SERVING_CASES + OPTION_CASES:
+        if name == "conv3x3_s2d_fused_head":  # K1's relu tile, the head in its epilogue
+            n, c4, co4, h4 = problem
+            plan = wgmma_plan.plan(n, (c4,), co4)
+            check(wgmma_plan.library_plan(n, (c4,), co4) == wgmma_plan.as_ints(plan),
+                  f"K9 {label}: the library's wgmma plan differs from ops/wgmma_plan.py")
+            print(f"build: wgmma plan {name} [{label}]: route {plan.route}, tile {plan.bm} x "
+                  f"{plan.bn}, A box {plan.box}, the head's {h4} columns in the epilogue")
+        elif name == "deconv_s2d":
+            m, c4, o4 = problem
+            dp = wgmma_plan.deconv_plan(m, c4, o4)
+            check(wgmma_plan.library_deconv_plan(m, c4, o4) == wgmma_plan.deconv_ints(dp),
+                  f"K4 {label}: the library's plan differs from ops/wgmma_plan.py")
+            print(f"build: K4 plan [{label}]: {dp.n_blocks} column block(s) of {dp.bn}, "
+                  f"{dp.wrow} GEMM rows an output row, A box {dp.box} x {dp.halves} an output "
+                  f"row, {dp.steps} 16-deep steps, {dp.a_stages} A tiles, all of B kept "
+                  f"({dp.b_bytes} bytes), {dp.bufs} staging buffers a consumer, {dp.smem} bytes "
+                  f"of shared memory")
     for _, label, (n, c4, co4, _) in PACKED_CASES:
         win = wgmma_plan.conv5_window(n, c4, co4)
         check(wgmma_plan.library_conv5_window(n, c4, co4) == wgmma_plan.conv5_window_ints(win),
@@ -1777,7 +1814,8 @@ def main() -> int:
 
     # Phase 2: each kernel against its plain version.
     worst = check_kernels()
-    n_checks = sum(len(CASE_DTYPES.get(name, (0, 0))) for name, _, _ in KERNEL_CASES)
+    n_checks = sum(len(CASE_DTYPES.get(name, (0, 0))) * len(CASE_BATCHES.get(name, (0,)))
+                   for name, _, _ in KERNEL_CASES)
     phase_done(f"kernels: {n_checks} checks passed; chains against the sequential kernels: "
                + ", ".join(f"{k} max abs {v:.3e}" for k, v in SEQUENTIAL_DIFF.items())
                + "; against K7, K1 or the engine: "
@@ -1927,6 +1965,8 @@ def main() -> int:
             timing, unit = per_option[name], "per serving forward with the option"
             if name == "conv3x3_s2d_chain3":
                 unit += ", bf16 on the wgmma chain; old_ms: s2d_chain"
+            elif name == "conv3x3_s2d_fused_head":
+                unit += ", bf16 on the wgmma mainloop's head epilogue; engine_ms: the engine"
         elif name in training:
             timing, unit = training[name], "per superstep"
         else:

@@ -1,6 +1,7 @@
 // The s2d GEMM kernels for Hopper (sm_90a): the C entry points over the
-// implicit-GEMM engine of s2d_gemm.cuh and, for bf16 K1, K2, K3 and K7, the
-// wgmma mainloop of s2d_wgmma.cuh (wgmma_kernels.cu). An engine launch fills
+// implicit-GEMM engine of s2d_gemm.cuh and, for bf16 K1, K2, K3, K7 and K9,
+// the wgmma mainloop of s2d_wgmma.cuh (wgmma_kernels.cu), for bf16 K4 its
+// deconv kernel (wgmma_deconv.cu). An engine launch fills
 // one Problem: s2d_gemm<T, 64> for outputs of at most 64 channels,
 // s2d_gemm<T, 128> otherwise, and s2d_gemm<T, 256> for the pooled conv with
 // 4Co = 256.
@@ -23,11 +24,11 @@
 //  - conv3x3_s2d_fused_head (:1145, kernel _kernel mode 'head' :589-606):
 //    the relu conv of p1's conv_out with the generator's 1x1 head in the
 //    epilogue: tanh(bf16(relu(y + b)) @ bf16(W_head) + b_head), summed in
-//    f32, written unpadded (batch, n, n, h4) in f32. Its blocks own all co4
-//    columns (128 x 128 tiles at 4Co = 128) and apply the head from shared
-//    memory, h4 dot products of 4Co a position on the CUDA cores; the
+//    f32, written unpadded (batch, n, n, h4) in f32. The engine's blocks own
+//    all co4 columns (128 x 128 tiles at 4Co = 128) and apply the head from
+//    shared memory, h4 dot products of 4Co a position on the CUDA cores; the
 //    full-channel plane is never stored. At p1 (n = 128, 4C = 4Co = 128,
-//    h4 = 4) the conv is K = 512 deep and the bound is its operations.
+//    h4 = 4) the conv is K = 512 deep and the bound is its bytes.
 //  - conv3x3_s2d_fused2 (:1289, kernel _kernel2 :1217): relu(conv(x1, W1) +
 //    conv(x2, W2) + b), the decoder's first conv over concat(up, skip)
 //    without the concat. The two operands are two k ranges of one GEMM, so
@@ -41,8 +42,8 @@
 //    On the serving path the p2 -> p1 upsample (m = 64, C = 64, 4O = 256). A
 //    K = 64 GEMM: about 64 FLOP per byte of its bf16 output plane, far below
 //    the H100's ~300 FLOP/B ridge, so its bound is the plane traffic. Each
-//    GEMM row is one output position whose gather picks the input group, so
-//    the sub-pixel interleave costs nothing.
+//    engine GEMM row is one output position whose gather picks the input
+//    group, so the sub-pixel interleave costs nothing.
 //  - conv5x5_s2d_fused (:1918 -> _conv5_impl :1940, kernel _kernel5 :1863):
 //    the critic's SAME 5x5 convs as 9 dense taps over the padded unshifted
 //    plane, relu or none (the transposed convs of the WGAN-GP input
@@ -53,13 +54,15 @@
 //    ridge, so these GEMMs are bound by their planes' traffic; 4Co <= 64
 //    takes 256 x 64 tiles so that a block's columns are not mostly padding.
 //
-// K1, K2, K3 and K7 take the wgmma mainloop in bf16 and the engine in
-// float32, whose CUDA-core FMAs are the exact indexing check; a bf16 shape
-// the mainloop refuses is an error, never an engine launch.
-// depgan_conv3x3_s2d_engine (K1, K2, K3) and depgan_conv5x5_s2d_engine (K7)
-// launch the engine in either dtype, the float32 path of those entry points
-// and, in bf16, the reference that the mainloop, the chains (K10, K12) and
-// the probes P1 and P2 sum like: no wrapper calls them.
+// K1, K2, K3, K7 and K9 take the wgmma mainloop in bf16, K4 the wgmma
+// deconv, and all of them the engine in float32, whose CUDA-core FMAs are
+// the exact indexing check; a bf16 shape the wgmma kernels refuse is an
+// error, never an engine launch. depgan_conv3x3_s2d_engine (K1, K2, K3),
+// depgan_conv5x5_s2d_engine (K7), depgan_conv3x3_s2d_fused_head_engine (K9)
+// and depgan_deconv_s2d_engine (K4) launch the engine in either dtype, the
+// float32 path of those entry points and, in bf16, the reference that the
+// wgmma kernels, the chains (K10, K12) and the probes P1 and P2 sum like:
+// no wrapper calls them.
 //
 // dtype: 0 = float32, 1 = bfloat16. Every entry point returns
 // cudaGetLastError() after its launch, or an error code for arguments the
@@ -176,11 +179,14 @@ extern "C" int depgan_conv3x3_s2d_fused2(int dtype, const void* x1, const void* 
   return wg::conv(cv, static_cast<cudaStream_t>(stream));
 }
 
-// w_head: (co4, h4) bf16, b_head: (h4,) f32, out: (batch, n, n, h4) f32.
-extern "C" int depgan_conv3x3_s2d_fused_head(int dtype, const void* x, const void* w4,
-                                             const void* bias, const void* w_head,
-                                             const void* b_head, void* out, int batch, int n,
-                                             int c4, int co4, int h4, void* stream) {
+// The engine's K9 in either dtype: what depgan_conv3x3_s2d_fused_head
+// launches in float32, and launched in bf16 before the wgmma mainloop took it
+// over. w_head: (co4, h4) bf16, b_head: (h4,) f32, out: (batch, n, n, h4) f32.
+extern "C" int depgan_conv3x3_s2d_fused_head_engine(int dtype, const void* x, const void* w4,
+                                                    const void* bias, const void* w_head,
+                                                    const void* b_head, void* out, int batch,
+                                                    int n, int c4, int co4, int h4,
+                                                    void* stream) {
   if (w_head == nullptr || b_head == nullptr || out == nullptr || h4 <= 0 || h4 > 16)
     return cudaErrorInvalidValue;
   return dispatch(dtype, stream, [&](auto& pr) {
@@ -202,8 +208,32 @@ extern "C" int depgan_conv3x3_s2d_fused_head(int dtype, const void* x, const voi
   });
 }
 
-extern "C" int depgan_deconv_s2d(int dtype, const void* x, const void* w2, const void* bias,
-                                 void* out, int batch, int m, int c4, int o4, void* stream) {
+extern "C" int depgan_conv3x3_s2d_fused_head(int dtype, const void* x, const void* w4,
+                                             const void* bias, const void* w_head,
+                                             const void* b_head, void* out, int batch, int n,
+                                             int c4, int co4, int h4, void* stream) {
+  if (dtype != 1)
+    return depgan_conv3x3_s2d_fused_head_engine(dtype, x, w4, bias, w_head, b_head, out, batch,
+                                                n, c4, co4, h4, stream);
+  wg::Conv cv{};
+  cv.x[0] = static_cast<const __nv_bfloat16*>(x);
+  cv.w[0] = static_cast<const __nv_bfloat16*>(w4);
+  cv.c4[0] = c4;
+  cv.gather = kGatherConv3x3, cv.n_ops = 1, cv.batch = batch, cv.n = n, cv.co4 = co4;
+  cv.epilogue = kHead, cv.pool = kPoolNone;
+  cv.bias = static_cast<const float*>(bias);
+  cv.w_head = static_cast<const __nv_bfloat16*>(w_head);
+  cv.b_head = static_cast<const float*>(b_head);
+  cv.head_out = static_cast<float*>(out);
+  cv.h4 = h4;
+  return wg::conv(cv, static_cast<cudaStream_t>(stream));
+}
+
+// The engine's K4 in either dtype: what depgan_deconv_s2d launches in
+// float32, and launched in bf16 before the wgmma deconv took it over.
+extern "C" int depgan_deconv_s2d_engine(int dtype, const void* x, const void* w2,
+                                        const void* bias, void* out, int batch, int m, int c4,
+                                        int o4, void* stream) {
   return dispatch(dtype, stream, [&](auto& pr) {
     using T = Elem<std::remove_reference_t<decltype(pr)>>;
     pr.op[0] = {static_cast<const T*>(x), static_cast<const T*>(w2), c4, c4 / 4};
@@ -218,6 +248,21 @@ extern "C" int depgan_deconv_s2d(int dtype, const void* x, const void* w2, const
     pr.bias = static_cast<const float*>(bias);
     pr.out = static_cast<T*>(out);
   });
+}
+
+extern "C" int depgan_deconv_s2d(int dtype, const void* x, const void* w2, const void* bias,
+                                 void* out, int batch, int m, int c4, int o4, void* stream) {
+  if (dtype != 1)
+    return depgan_deconv_s2d_engine(dtype, x, w2, bias, out, batch, m, c4, o4, stream);
+  wg::Conv cv{};
+  cv.x[0] = static_cast<const __nv_bfloat16*>(x);
+  cv.w[0] = static_cast<const __nv_bfloat16*>(w2);
+  cv.c4[0] = c4;
+  cv.gather = kGatherDeconv, cv.n_ops = 1, cv.batch = batch, cv.n = 2 * m, cv.co4 = o4;
+  cv.epilogue = kRelu, cv.pool = kPoolNone;
+  cv.bias = static_cast<const float*>(bias);
+  cv.out = static_cast<__nv_bfloat16*>(out);
+  return wg::deconv(cv, static_cast<cudaStream_t>(stream));
 }
 
 // The engine's K7 in either dtype: what depgan_conv5x5_s2d_fused launches

@@ -1,7 +1,10 @@
 // The bf16 wgmma mainloop of K1 (conv3x3_s2d_fused: relu, film, none), K2
-// (its pooled form, conv3x3_s2d_fused_pool), K3 (conv3x3_s2d_fused2) and K7
-// (conv5x5_s2d_fused: relu, none) for Hopper (sm_90a): what the host and the
-// kernel share. The kernel is in wgmma_kernels.cu.
+// (its pooled form, conv3x3_s2d_fused_pool), K3 (conv3x3_s2d_fused2), K7
+// (conv5x5_s2d_fused: relu, none) and K9 (K1's relu conv with the 1x1 head
+// in its epilogue, conv3x3_s2d_fused_head) for Hopper (sm_90a): what the
+// host and the kernel share. The kernel is in wgmma_kernels.cu; the
+// kernels of K11, K10 and K4 on the same machinery, whose plans are here
+// too, in wgmma_conv5.cu, wgmma_chain.cu and wgmma_deconv.cu.
 //
 // The GEMMs are the engine's (s2d_gemm.cuh): rows m = (b, y, x) are output
 // positions, and the gather decides what depth k of row m reads.
@@ -44,6 +47,10 @@
 // = 32, 64, 128 or 256 (the generator's widths at first_fm 8 to 32), where a
 // lane's runs of 8 columns after the epilogue's transpose lie each in one
 // group at the same channels over the column loop; other widths are refused.
+// K9's head (epilogue kHead) needs them in one block too, any 4Co <= 256: it
+// sums W_head's columns in the engine's order, one head column's chain a
+// lane of the quad that holds a row, and stores tanh of each of the h4 <= 16
+// sums, not the relu plane.
 //
 // The probes run the same mainloop. P1 (kernel_anatomy) is the kernel's
 // Phase argument (the engine's enum, s2d_gemm.cuh): K1's relu launch split
@@ -74,7 +81,9 @@ constexpr int kPast = -1;   // a plan entry past K: its copies are zeros
 enum Route : int { kRouteTma = 0, kRouteCpAsync = 1 };
 
 // One bf16 launch: K1 or K2 (gather kGatherConv3x3, n_ops 1), K3 (n_ops 2,
-// relu), or K7 (kGatherConv5x5, n_ops 1, relu or none).
+// relu), K7 (kGatherConv5x5, n_ops 1, relu or none), K9 (kGatherConv3x3,
+// n_ops 1, epilogue kHead: no out, the head's tanh into head_out) or K4
+// (kGatherDeconv, n_ops 1, relu, n = 2m the output's interior side).
 struct Conv {
   const __nv_bfloat16* x[2];  // (batch, n+2, n+2, c4[o]) padded planes
   const __nv_bfloat16* w[2];  // (depth(gather, c4[o]), co4) weight rows
@@ -86,6 +95,10 @@ struct Conv {
   const float* beta;   // (batch, co4), film only
   __nv_bfloat16* out;     // (batch, n+2, n+2, co4)
   __nv_bfloat16* pooled;  // pixel: (batch, n, n, co4/4); s2d: (batch, n/2+2, n/2+2, co4)
+  const __nv_bfloat16* w_head;  // (co4, h4), K9 only
+  const float* b_head;          // (h4,)
+  float* head_out;              // (batch, n, n, h4): tanh(head), unpadded
+  int h4;                       // head columns, 1 .. 16
 };
 
 struct Geometry {
@@ -328,6 +341,66 @@ __host__ __device__ inline Conv5Window conv5_window(int n, int c4, int co4) {
 // K11: K7's function (Conv with gather kGatherConv5x5, one operand, relu or
 // none) over the window.
 cudaError_t conv5_window_conv(const Conv& cv, cudaStream_t stream);
+
+// K4 (deconv_wgmma in wgmma_deconv.cu): the 2x2 stride-2 transposed conv
+// from the padded plane (B, m+2, m+2, 4C) into (B, 2m+2, 2m+2, 4O),
+//   out[b, 2i+p+1, 2j+q+1, :] = relu(x[b, i+1, j+1, (2p+q)C : (2p+q+1)C] @ w2 + b4),
+// a GEMM K = C deep whose rows are output positions. A tile is one input row
+// i of image b and one column block: its two output rows 2i + p (p = 0, 1),
+// each wrow GEMM rows x = 2j + q (2m rounded up to 64: no m64 tile spans two
+// output rows; rows past 2m are junk and not stored). Consumer warpgroup g
+// takes output row p = g, its m64 tiles one after another. Viewed as the
+// 5-d tensor (C, 2 [q], 2 [p], m+2 [j], B(m+2) [b, i]), which is the plane
+// itself (strides 2, 2C, 4C, 8C and (m+2) 8C bytes), the input gives a row's
+// A as one TMA box a 32-deep half: extents (32, 2, 1, m, 1) at (32 h, 0, p,
+// 1, b(m+2) + i + 1) land as [j][q][32 channels], GEMM row 2j + q, K-major
+// in the mainloop's 64-byte-swizzled halves (zeros past C, where C < 32).
+// B (C x 4O, every column block) is loaded once a block by TMA in the
+// mainloop's 64 x 64 boxes and kept. Each m64 tile's bf16 output is staged
+// in shared memory (128-byte swizzled 64 x 64 boxes) and sent by TMA stores,
+// the next tile's products and epilogue running while they drain.
+struct DeconvPlan {
+  int bn, n_blocks;  // column blocks of 4O, as geometry(): bn up to 256
+  int wrow;          // GEMM rows an output row takes: 2m rounded up to 64
+  int steps;         // 16-deep steps: C / 16 rounded up
+  int halves;        // 32-deep A boxes an output row: C / 32 rounded up
+  int kt;            // 64-deep k-tiles of B: C / 64 rounded up
+  int a_row;         // bytes of an output row's A: halves x wrow rows x 64
+  int a_stages;      // A tiles (two output rows each): 2 where they fit, else 1
+  int b_bytes;       // all of B, kept: n_blocks x kt x bn x 128
+  int bufs;          // output staging buffers a consumer (64 x bn bf16 each): 2 or 1
+  int smem;          // dynamic shared memory bytes, the 1 KB alignment included
+};
+
+// K4's plan for input side m, 4C = c4, 4O = o4; bn 0 where the kernel
+// refuses it: C a multiple of 8 (16-byte TMA strides), m at most 256 (a
+// box extent), 4O a multiple of 8, and all of B with one A tile and one
+// staging buffer a consumer inside the shared memory.
+__host__ __device__ inline DeconvPlan deconv_plan(int m, int c4, int o4) {
+  DeconvPlan p{};
+  if (m <= 0 || m > 256 || c4 <= 0 || c4 % (4 * kVec) != 0 || c4 > 0xFFFF || o4 <= 0 || o4 % 8)
+    return p;
+  const int c = c4 / 4;
+  p.n_blocks = (o4 + 255) / 256;
+  p.bn = ((o4 + p.n_blocks - 1) / p.n_blocks + 63) / 64 * 64;
+  p.wrow = (2 * m + 63) / 64 * 64;
+  p.steps = (c + 15) / 16;
+  p.halves = (c + kHalf - 1) / kHalf;
+  p.kt = (c + kBK - 1) / kBK;
+  p.a_row = p.halves * p.wrow * 64;
+  p.b_bytes = p.n_blocks * p.kt * p.bn * kBK * 2;
+  for (p.bufs = 2; p.bufs >= 1; --p.bufs)
+    for (p.a_stages = 2; p.a_stages >= 1; --p.a_stages) {
+      p.smem = 1024 + p.a_stages * 2 * p.a_row + p.b_bytes + 2 * p.bufs * 64 * p.bn * 2;
+      if (p.smem <= kSmemMax) return p;
+    }
+  p = DeconvPlan{};
+  return p;
+}
+
+// K4: the Conv with gather kGatherDeconv (x, w2 (C, 4O), bias, out; n = 2m);
+// an error code for what deconv_plan refuses.
+cudaError_t deconv(const Conv& cv, cudaStream_t stream);
 
 // K10 (chain_wgmma in wgmma_chain.cu): a whole generator site, conv_in (K1,
 // or K3's two operands) -> the FiLM conv (K1 film) -> conv_out (K1, or K2

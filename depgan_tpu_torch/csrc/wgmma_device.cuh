@@ -1,9 +1,10 @@
 // The device and host helpers of the bf16 wgmma kernels for Hopper (sm_90a):
-// mbarriers, TMA copies, wgmma and its matrix descriptors, the epilogue's
-// transpose, bias and bf16 store, and the tensor-map encoder. The mainloop
-// of K1, K2, K3, K7 and the probes P1, P2 (wgmma_kernels.cu), the window
-// conv of K11 (wgmma_conv5.cu) and the chain of K10 (wgmma_chain.cu) share
-// them, so each sums its products with the same instructions.
+// mbarriers, TMA copies (loads, and the stores of K4's staged output), wgmma
+// and its matrix descriptors, the epilogue's transpose, bias and bf16 store,
+// and the tensor-map encoder. The mainloop of K1, K2, K3, K7, K9 and the
+// probes P1, P2 (wgmma_kernels.cu), the window conv of K11 (wgmma_conv5.cu),
+// the chain of K10 (wgmma_chain.cu) and the deconv K4 (wgmma_deconv.cu)
+// share them, so each sums its products with the same instructions.
 #pragma once
 
 #include <cuda.h>
@@ -68,6 +69,38 @@ __device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, uint64
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+__device__ __forceinline__ void tma_5d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+// A TMA store of a box from shared memory (address src), in this thread's
+// bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // Makes this thread's generic-proxy writes to shared memory (its cp.async
 // copies, once waited for) visible to the async proxy that wgmma reads with.
@@ -230,6 +263,15 @@ __device__ __forceinline__ void quad_columns(const float (&acc)[BN / 2], int G, 
   }
 }
 
+// Four 8 x 8 bf16 matrices from the mma fragment layout (lane t holds row
+// t / 4, columns 2 (t % 4), + 1 of each, packed) into shared memory: lane t
+// gives the address of row t % 8 of matrix t / 8, 16 contiguous bytes.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
 // Eight bf16 values, one 16-byte run.
 union Pack {
   uint4 u;
@@ -276,6 +318,10 @@ __device__ __forceinline__ float stage_sum(const unsigned char* a, int ctid) {
 __device__ __forceinline__ void consumers_sync() {  // both consumer warpgroups, not the producer
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
+// One consumer warpgroup g (0 or 1) alone: named barrier 2 + g.
+__device__ __forceinline__ void warpgroup_sync(int g) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + g) : "memory");
+}
 
 // cuTensorMapEncodeTiled from the driver, reached through the runtime so the
 // library needs no -lcuda.
@@ -307,7 +353,7 @@ inline EncodeTiled encode_tiled() {
 inline bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
             const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn != nullptr &&
          fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

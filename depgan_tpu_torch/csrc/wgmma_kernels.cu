@@ -1,4 +1,4 @@
-// The bf16 wgmma mainloop of K1, K2, K3 and K7 for Hopper (sm_90a); the
+// The bf16 wgmma mainloop of K1, K2, K3, K7 and K9 for Hopper (sm_90a); the
 // design is in s2d_wgmma.cuh.
 //
 // Replaces, beside the engine's CUDA-core float32 path (s2d_kernels.cu), the
@@ -18,6 +18,20 @@
 //    the critic's SAME 5x5 convs as 9 dense taps, relu or none; n = 128
 //    (4C 16 or 64 -> 64) and n = 64 (64 or 128 -> 128), and the transposes
 //    64 -> 16, 64 -> 64, 128 -> 64 and 128 -> 128: K = 144 to 1152.
+//  - conv3x3_s2d_fused_head (:1145, kernel _kernel mode 'head' :589-606):
+//    p1's conv_out with the generator's 1x1 head in its epilogue, the
+//    serving forward's last conv under fuse_head (n = 128, 128 -> 128,
+//    h4 = 4): tanh(bf16(relu(y + b)) @ bf16(W_head) + b_head), summed in
+//    float32, written unpadded (batch, n, n, h4) in float32. Its bound is
+//    the bytes (at batch 42: 176 MB of input plane, 11 MB of head output,
+//    0.056 ms; the s2d GEMM's own products take 0.092 ms at the bf16 peak),
+//    and it never stores the 176 MB relu plane that K1 writes. The engine
+//    ran it at 0.71 ms: its wmma mainloop, then a block-wide barrier and a
+//    4Co-long serial fmaf loop per (row, head column) from shared memory.
+//    Here it is the HEAD instantiation of the mainloop: K1's relu tile and
+//    ring, the head summed from registers in the engine's order, each lane
+//    of a row's quad running one head column's chain over the row's values
+//    shuffled to it in column order (head_epilogue), no barrier.
 // and, of the JAX package's probe scripts, in bf16:
 //  - P1, run_variant (scripts/kernel_anatomy.py:108; k_full :80,
 //    k_matmul_only :90, k_stage_only :97): K1's relu launch split into
@@ -78,6 +92,64 @@ struct alignas(64) Params {
   float* sums;           // P1 stage_only: one float a tile of bm rows
 };
 
+// K9's head (HEAD): tanh(bf16(relu(y + b)) @ W_head + b_head) of each row,
+// in the engine's order: the relu output rounded to bf16, then for each
+// head column h one fmaf chain over the columns c = 0 .. 4Co - 1 in order.
+// A quad of lanes holds a row (wgmma: lane q has columns 8j + 2q, + 1), so
+// lane q runs the chain of head column h0 + q: y is rounded in place in the
+// accumulators, and column c comes from lane (c / 2) % 4 by one shuffle to
+// the quad, in order; each lane adds it to its own chain with full lanes,
+// for the thread's 2 MT row sets side by side, so their chains overlap.
+// Head columns go 4 at a time (h4 <= 16). wh is W_head as float in shared
+// memory, [c][q][h0 / 4]: lane q's weight of column c at 16 c + 4 q + h0 / 4,
+// zeros past 4Co, where the accumulators hold zeros too (B's columns past
+// 4Co read as zeros): every chain runs BN steps, a trip count the compiler
+// unrolls, so the accumulators stay in registers, and a step past 4Co adds
+// an exact zero.
+template <int BN, int MT>
+__device__ __forceinline__ void head_epilogue(const Conv& cv, float (&acc)[MT][BN / 2],
+                                              const float* wh, int64_t m0, int g, int warp,
+                                              int lane, int q, int64_t M) {
+  const int co4 = cv.co4, h4 = cv.h4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {  // y = bf16(relu(acc + b)) of the lane's own columns
+    const int col = 8 * j + 2 * q;
+    if (col >= co4) continue;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(cv.bias + col));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float& y0 = acc[mt][4 * j + 2 * i];
+        float& y1 = acc[mt][4 * j + 2 * i + 1];
+        y0 = __bfloat162float(__float2bfloat16(fmaxf(y0 + b.x, 0.f)));
+        y1 = __bfloat162float(__float2bfloat16(fmaxf(y1 + b.y, 0.f)));
+      }
+  }
+  for (int h0 = 0; h0 < h4; h0 += 4) {
+    float part[2 * MT];
+#pragma unroll
+    for (int rs = 0; rs < 2 * MT; ++rs) part[rs] = 0.f;
+#pragma unroll
+    for (int c = 0; c < BN; ++c) {
+      const float w = wh[16 * c + 4 * q + h0 / 4];
+      const int from = (lane & ~3) | ((c >> 1) & 3);
+#pragma unroll
+      for (int rs = 0; rs < 2 * MT; ++rs)
+        part[rs] = fmaf(__shfl_sync(0xffffffffu, acc[rs / 2][4 * (c >> 3) + 2 * (rs % 2) + (c & 1)],
+                                    from),
+                        w, part[rs]);
+    }
+    const int h = h0 + q;  // lane q's chain: head column h0 + q of its quad's row
+    if (h >= h4) continue;
+#pragma unroll
+    for (int rs = 0; rs < 2 * MT; ++rs) {
+      const int64_t m = m0 + (g * MT + rs / 2) * 64 + warp * 16 + (lane >> 2) + 8 * (rs % 2);
+      if (m < M) cv.head_out[m * h4 + h] = tanhf(part[rs] + cv.b_head[h]);
+    }
+  }
+}
+
 // MT m64 tiles a consumer warpgroup: BM = 128 MT rows a block. POOL: K2's
 // pooled epilogue, a separate instantiation so the others keep theirs lean.
 // PHASE: kProduction, or a P1 probe phase (s2d_gemm.cuh's Phase), each
@@ -85,11 +157,13 @@ struct alignas(64) Params {
 // the launch's epilogue kNone), matmul_only (A by 2-d boxes of the dense
 // taps), stage_only (the A loads alone, summed). A probe tile runs its phase
 // p.reps times back to back; a rep re-reads its tile's A and B boxes, which
-// the first rep brought into L2.
-template <int BN, int MT, bool POOL, int PHASE = kProduction>
+// the first rep brought into L2. HEAD: K9's head in place of the store
+// (head_epilogue), an instantiation of its own as the pool is.
+template <int BN, int MT, bool POOL, int PHASE = kProduction, bool HEAD = false>
 __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant__ Params p) {
   static_assert(!POOL || BN == 64 || BN == 128 || BN == 256, "the pool takes BN = 64, 128, 256");
   static_assert(PHASE == kProduction || !POOL, "the probes run K1's unpooled launch");
+  static_assert(!HEAD || (PHASE == kProduction && !POOL), "the head is K1's relu launch's");
   constexpr bool kStage = PHASE == kProbeStageOnly;
   constexpr int kBMt = kBM * MT, kA = MT * kABytes, kAHalf = MT * kAHalfBytes;
   constexpr int kStageBytes = kA + BN * kBK * 2;
@@ -111,6 +185,13 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
     const int op = j < runs0 ? 0 : 1;
     plan[j] = plan_entry(cv.gather, cv.c4[op], (j - (op ? runs0 : 0)) * kVec);
   }
+  if constexpr (HEAD) {  // K9: W_head as float after the plan, [c][q][k] for column 4k + q
+    float* wh = reinterpret_cast<float*>(plan + runs);
+    for (int j = tid; j < BN * 16; j += kThreadsWg) {
+      const int c = j / 16, h = 4 * (j & 3) + ((j >> 2) & 3);
+      wh[j] = c < co4 && h < cv.h4 ? __bfloat162float(cv.w_head[c * cv.h4 + h]) : 0.f;
+    }
+  }
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], tma ? 1 : 1 + 128);  // expect_tx, and each cp.async producer thread
@@ -120,7 +201,7 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
   }
   const int64_t ring0 = (int64_t)blockIdx.x * kThreadsWg + tid;
   const int64_t ring_step = (int64_t)gridDim.x * kThreadsWg;
-  if constexpr (!kStage) zero_ring(cv.out, cv.batch, side, co4, ring0, ring_step);
+  if constexpr (!kStage && !HEAD) zero_ring(cv.out, cv.batch, side, co4, ring0, ring_step);
   if (POOL && cv.pool == kPoolS2d)
     zero_ring(cv.pooled, cv.batch, n / 2 + 2, co4, ring0, ring_step);
   __syncthreads();
@@ -287,6 +368,11 @@ __global__ void __launch_bounds__(kThreadsWg, 1) s2d_wgmma(const __grid_constant
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) pin(acc[mt][e]);
+    if constexpr (HEAD) {  // K9: the head's sums and tanh, no relu plane stored
+      head_epilogue<BN, MT>(cv, acc, reinterpret_cast<const float*>(plan + runs), m0, g, warp,
+                            lane, q, M);
+      continue;
+    }
 
     // Epilogue: quad_columns gives each lane 8 consecutive columns of a row.
 #pragma unroll
@@ -541,27 +627,29 @@ __global__ void __launch_bounds__(kThreadsWg, 1) rowblk_wgmma(const __grid_const
   }
 }
 
-template <int BN, int MT, bool POOL, int PHASE = kProduction>
+template <int BN, int MT, bool POOL, int PHASE = kProduction, bool HEAD = false>
 cudaError_t launch_bn(const Params& prm, cudaStream_t stream) {
-  // The ring, the plan (an int a kVec-deep run) and the 1 KB alignment.
-  const int smem = kStages * (MT * kABytes + BN * kBK * 2) + prm.kt_total * (kBK / kVec) * 4 + 1024;
+  // The ring, the plan (an int a kVec-deep run), K9's W_head and the 1 KB alignment.
+  const int smem = kStages * (MT * kABytes + BN * kBK * 2) + prm.kt_total * (kBK / kVec) * 4 +
+                   (HEAD ? BN * 16 * 4 : 0) + 1024;
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
-      s2d_wgmma<BN, MT, POOL, PHASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      s2d_wgmma<BN, MT, POOL, PHASE, HEAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int64_t rows = (int64_t)prm.conv.batch * prm.conv.n * prm.conv.n;
   const int64_t tiles = (rows + kBM * MT - 1) / (kBM * MT) * prm.geo.n_blocks;
-  s2d_wgmma<BN, MT, POOL, PHASE>
+  s2d_wgmma<BN, MT, POOL, PHASE, HEAD>
       <<<(unsigned)(tiles < sms ? tiles : sms), kThreadsWg, smem, stream>>>(prm);
   return cudaGetLastError();
 }
 
-// The instantiation for the launch's tile and pool.
+// The instantiation for the launch's tile, pool and head.
 template <int BN, int MT>
 cudaError_t launch_tile(const Params& prm, cudaStream_t stream) {
+  if (prm.conv.epilogue == kHead) return launch_bn<BN, MT, false, kProduction, true>(prm, stream);
   if (prm.conv.pool == kPoolNone) return launch_bn<BN, MT, false>(prm, stream);
   if constexpr (BN == 64 || BN == 128 || BN == 256) return launch_bn<BN, MT, true>(prm, stream);
   return cudaErrorInvalidValue;
@@ -585,7 +673,13 @@ cudaError_t launch_phase(const Params& prm, cudaStream_t stream) {
 cudaError_t prepare(const Conv& cv, Params& prm) {
   if (cv.batch <= 0 || !takes(cv.gather, cv.n, cv.c4, cv.n_ops, cv.co4, cv.pool))
     return cudaErrorInvalidValue;
-  if (cv.epilogue != kRelu && cv.epilogue != kFilm && cv.epilogue != kNone)
+  if (cv.epilogue != kRelu && cv.epilogue != kFilm && cv.epilogue != kNone &&
+      cv.epilogue != kHead)
+    return cudaErrorInvalidValue;
+  if (cv.epilogue == kHead &&  // one 3x3 operand, every column in one block, h4 <= 16
+      (cv.gather != kGatherConv3x3 || cv.n_ops != 1 || cv.pool != kPoolNone || cv.co4 > 256 ||
+       cv.h4 <= 0 || cv.h4 > 16 || cv.w_head == nullptr || cv.b_head == nullptr ||
+       cv.head_out == nullptr))
     return cudaErrorInvalidValue;
   if (cv.epilogue == kFilm &&
       (cv.gather != kGatherConv3x3 || cv.n_ops != 1 || cv.c4[0] != cv.co4))

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "depgan_conv3x3_s2d_fused2": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, x, w2, bias, out, batch, m, c4, o4, stream
     "depgan_deconv_s2d": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "depgan_deconv_s2d_engine": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, x, w9, bias, out, batch, n, c4, co4, epilogue, stream
     "depgan_conv5x5_s2d_fused": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, x, out, batch, n, c4, stream
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "depgan_film_residual": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x, w4, bias, w_head (bf16), b_head, out, batch, n, c4, co4, h4, stream
     "depgan_conv3x3_s2d_fused_head": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "depgan_conv3x3_s2d_fused_head_engine": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                             _P],
     # dtype, x1, x2, w1a, w1b, b1, w2, b2, w3, b3, gamma, beta, out, pooled,
     # batch, n, c4a, c4b, c4m, c4o, mode1, mode2, mode3, pool, stream
     "depgan_conv3x3_s2d_chain": [_I] + [_P] * 13 + [_I] * 10 + [_P],
@@ -125,6 +128,9 @@ def library() -> ctypes.CDLL:
     # n, c4a, c4b, c4m, c4o, pool, out, cap -> ints written (K10's plan, a query)
     lib.depgan_chain_plan.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_int), _I]
     lib.depgan_chain_plan.restype = ctypes.c_int
+    # m, c4, o4, out, cap -> ints written (K4's plan, a query)
+    lib.depgan_deconv_plan.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int), _I]
+    lib.depgan_deconv_plan.restype = ctypes.c_int
     return lib
 
 

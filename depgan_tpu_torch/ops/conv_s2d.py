@@ -46,7 +46,7 @@ from .s2d_conv import (
     flip_transpose_w5,
     s2d_unshifted,
 )
-from .wgmma_plan import POOL_WIDTHS, chain_plan, conv5_window_takes
+from .wgmma_plan import POOL_WIDTHS, chain_plan, conv5_window_takes, deconv_plan
 
 _EPILOGUES = {"relu": 0, "film": 1, "none": 2}
 _POOLS = {"pixel": 1, "s2d": 2}
@@ -414,7 +414,10 @@ def _conv2_impl(x1_padded, x2_padded, w4_1, w4_2, bias4):
 def _deconv_impl(x_padded, w2, bias4):
     """Deconv2x2 + bias + relu from padded s2d (B, M+2, M+2, 4C) into the
     finer level's padded s2d (B, 2M+2, 2M+2, 4O); w2 (C, 4O) is the Keras
-    kernel in matmul form, bias4 (4O,) float32."""
+    kernel in matmul form, bias4 (4O,) float32. bfloat16 runs the wgmma
+    deconv, which takes the widths ``wgmma_plan.deconv_plan`` takes (M <=
+    256, B and the tiles inside the shared memory) and raises for others;
+    float32 runs the engine."""
     b, m, c4 = _check_plane("deconv_s2d", x_padded)
     o4 = w2.shape[-1]
     _check_weight("w2", w2, (c4 // 4, o4), x_padded.dtype)
@@ -422,6 +425,8 @@ def _deconv_impl(x_padded, w2, bias4):
     if not _on_cuda(x_padded, w2, bias4):
         return deconv_s2d_plain(x_padded, w2, bias4)
     _check_kernel_widths(o4, c4)
+    if x_padded.dtype == torch.bfloat16:
+        deconv_plan(m, c4, o4)  # raises for refusals
     dev, dt = x_padded.device, x_padded.dtype
     out = torch.empty((b, 2 * m + 2, 2 * m + 2, o4), dtype=dt, device=dev)
     with torch.cuda.device(dev):
@@ -509,7 +514,8 @@ def conv3x3_s2d_fused_head(x_padded, w4, bias4, w_head4, b_head4):
     w4 (2, 2, 4C, 4Co) in the dtype of x, bias4 (4Co,) float32, w_head4
     (1, 1, 4Co, Ho4) and b_head4 (Ho4,) float32. Returns the unpadded
     (B, N, N, Ho4) float32. Inference-only. The kernel takes 4Co <= 256 and
-    Ho4 <= 16."""
+    Ho4 <= 16: in bfloat16 the wgmma mainloop's head epilogue, in float32
+    the engine's."""
     b, n, c4 = _check_plane("conv3x3_s2d_fused_head", x_padded)
     co4 = w4.shape[-1]
     _check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)

@@ -20,9 +20,10 @@ with their plain PyTorch versions.
   (``reshape_idx``) or as the flat copy it is on a row-major layout
   (``merge``).
 
-``conv3x3_engine`` launches the GEMM engine's K1, K2 or K3 and
-``conv5x5_engine`` its K7, which the wrappers no longer call in bfloat16:
-the references that the wgmma mainloop, the chains and P1, P2 equal bit for
+``conv3x3_engine`` launches the GEMM engine's K1, K2 or K3,
+``conv5x5_engine`` its K7, ``conv3x3_head_engine`` its K9 and
+``deconv_engine`` its K4, which the wrappers no longer call in bfloat16:
+the references that the wgmma kernels, the chains and P1, P2 equal bit for
 bit. ``kernel_anatomy_engine``, ``conv3x3_rowblk_window``,
 ``conv5x5_packed_mma_sync`` and ``conv3x3_chain3_wmma`` are P1's, P2's,
 K11's and K10's bfloat16 routes before the wgmma kernels took them over
@@ -222,6 +223,56 @@ def conv5x5_engine(x_padded, w9, bias4, mode="relu"):
             _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w9.data_ptr(), bias4.data_ptr(),
             out.data_ptr(), b, n, c4, co4, K._EPILOGUES[mode], _cuda.stream(dev)),
             "conv5x5_engine")
+    return out
+
+
+def conv3x3_head_engine(x_padded, w4, bias4, w_head4, b_head4):
+    """The GEMM engine's K9 on a CUDA tensor in either dtype: what
+    ``conv_s2d.conv3x3_s2d_fused_head`` launched in bfloat16 before the wgmma
+    mainloop took it over. A reference for ``chip_smoke.py`` and the card's
+    tests: no path calls it, and it counts no launch. Arguments as
+    ``conv3x3_s2d_fused_head``."""
+    b, n, c4 = K._check_plane("conv3x3_head_engine", x_padded)
+    co4 = w4.shape[-1]
+    K._check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
+    K._check_f32("bias4", bias4, (co4,))
+    h4 = w_head4.shape[-1]
+    K._check_f32("w_head4", w_head4, (1, 1, co4, h4))
+    K._check_f32("b_head4", b_head4, (h4,))
+    if not K._on_cuda(x_padded, w4, bias4, w_head4, b_head4):
+        return K.conv3x3_s2d_fused_head_plain(x_padded, w4, bias4, w_head4, b_head4)
+    K._require(co4 <= 256 and h4 <= 16, f"the engine's head takes 4Co <= 256 and Ho4 <= 16, "
+                                        f"got {co4}, {h4}")
+    K._check_kernel_widths(co4, c4)
+    dev = x_padded.device
+    w_head = w_head4.reshape(co4, h4).to(torch.bfloat16).contiguous()
+    out = torch.empty((b, n, n, h4), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.check(_cuda.library().depgan_conv3x3_s2d_fused_head_engine(
+            _cuda.DTYPE_CODES[x_padded.dtype], x_padded.data_ptr(), w4.data_ptr(),
+            bias4.data_ptr(), w_head.data_ptr(), b_head4.data_ptr(), out.data_ptr(), b, n, c4,
+            co4, h4, _cuda.stream(dev)), "conv3x3_head_engine")
+    return out
+
+
+def deconv_engine(x_padded, w2, bias4):
+    """The GEMM engine's K4 on a CUDA tensor in either dtype: what
+    ``conv_s2d._deconv_impl`` launched in bfloat16 before the wgmma deconv
+    took it over. A reference for ``chip_smoke.py`` and the card's tests: no
+    path calls it, and it counts no launch. Arguments as ``_deconv_impl``."""
+    b, m, c4 = K._check_plane("deconv_engine", x_padded)
+    o4 = w2.shape[-1]
+    K._check_weight("w2", w2, (c4 // 4, o4), x_padded.dtype)
+    K._check_f32("bias4", bias4, (o4,))
+    if not K._on_cuda(x_padded, w2, bias4):
+        return K.deconv_s2d_plain(x_padded, w2, bias4)
+    K._check_kernel_widths(o4, c4)
+    dev, dt = x_padded.device, x_padded.dtype
+    out = torch.empty((b, 2 * m + 2, 2 * m + 2, o4), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        _cuda.check(_cuda.library().depgan_deconv_s2d_engine(
+            _cuda.DTYPE_CODES[dt], x_padded.data_ptr(), w2.data_ptr(), bias4.data_ptr(),
+            out.data_ptr(), b, m, c4, o4, _cuda.stream(dev)), "deconv_engine")
     return out
 
 

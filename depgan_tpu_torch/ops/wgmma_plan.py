@@ -30,6 +30,13 @@ descriptors give. bf16 K11 does the same over a window of each tile's input
 rows (``Conv5Window``: ``conv5_window``, ``gather_conv5_window``), and bf16
 K10 chains three convs through two regions of shared memory (``ChainPlan``:
 ``chain_plan``, and ``run_chain``, its stages in plain torch).
+
+bf16 K4 takes each output row's A as TMA boxes of the input plane viewed as
+a 5-d tensor (``DeconvPlan``: ``deconv_plan``, and ``gather_deconv``, which
+reads those boxes as the kernel's tile walk does). bf16 K9 sums its head in
+the mainloop's epilogue by one chain a lane, each over its row's values in
+column order (``fragment_columns``, the accumulator's lane map, and
+``head_chain``, the order in which the chain reads it).
 """
 
 from __future__ import annotations
@@ -616,3 +623,111 @@ def run_chain(p: ChainPlan, planes: list[torch.Tensor], w0s: list[torch.Tensor],
                 pooled[bb, y // 2 + 1, x // 2 + 1, g * cp:(g + 1) * cp] = v[j]
     return {"out": out.to(dt), "pooled": None if pooled is None else pooled.to(dt),
             "stores": stores, "regions": regions}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeconvPlan:
+    """K4's plan (``DeconvPlan`` in the header): a tile is one input row i of
+    an image and one column block, its two output rows 2i + p, each ``wrow``
+    GEMM rows x = 2j + q; each output row's A is ``halves`` TMA boxes
+    (32, 2, 1, m, 1) of the input plane viewed as (C, 2, 2, m + 2, B (m + 2))."""
+    bn: int        # columns of a column block: 4O split into blocks of at most 256
+    n_blocks: int  # column blocks
+    wrow: int      # GEMM rows an output row takes: 2m rounded up to 64
+    steps: int     # 16-deep steps: C / 16 rounded up
+    halves: int    # 32-deep A boxes an output row: C / 32 rounded up
+    kt: int        # 64-deep k-tiles of B: C / 64 rounded up
+    a_row: int     # bytes of an output row's A: halves x wrow x 64
+    a_stages: int  # A tiles: 2 where they fit, else 1
+    b_bytes: int   # all of B, kept: n_blocks x kt x bn x 128
+    bufs: int      # output staging buffers a consumer: 2 where they fit, else 1
+    smem: int      # dynamic shared memory bytes, the 1 KB alignment included
+    box: tuple[int, int, int, int, int]  # the A box (32, 2, 1, m, 1)
+
+
+def deconv_plan(m: int, c4: int, o4: int) -> DeconvPlan:
+    """K4's plan for input side m, 4C = c4, 4O = o4. Raises ValueError where
+    the kernel refuses it: C a multiple of 8, m at most 256 (a box extent),
+    4O a multiple of 8, and all of B with one A tile and one staging buffer
+    a consumer inside the shared memory. Two A tiles and two staging buffers
+    where they fit (the serving shape m 64, 4C 256, 4O 256 takes both)."""
+    if m <= 0 or m > 256 or c4 <= 0 or c4 % (4 * VEC) or c4 > 0xFFFF or o4 <= 0 or o4 % 8:
+        raise ValueError(f"K4's wgmma deconv takes 4C a multiple of 32, 4O of 8 and m <= 256, "
+                         f"got m {m}, 4C {c4}, 4O {o4}")
+    c = c4 // 4
+    n_blocks = -(-o4 // 256)
+    bn = -(-(-(-o4 // n_blocks)) // 64) * 64
+    wrow = -(-2 * m // 64) * 64
+    halves, kt = -(-c // HALF), -(-c // BK)
+    a_row, b_bytes = halves * wrow * 64, n_blocks * kt * bn * BK * 2
+    for bufs in (2, 1):
+        for a_stages in (2, 1):
+            smem = 1024 + a_stages * 2 * a_row + b_bytes + 2 * bufs * 64 * bn * 2
+            if smem <= SMEM_MAX:
+                return DeconvPlan(bn, n_blocks, wrow, -(-c // 16), halves, kt, a_row, a_stages,
+                                  b_bytes, bufs, smem, (HALF, 2, 1, m, 1))
+    raise ValueError(f"K4's wgmma deconv does not fit: m {m}, 4C {c4}, 4O {o4} ({b_bytes} bytes "
+                     f"of B)")
+
+
+def deconv_ints(p: DeconvPlan) -> list[int]:
+    """The plan in the layout of the library's ``depgan_deconv_plan``."""
+    return [p.bn, p.n_blocks, p.wrow, p.steps, p.halves, p.kt, p.a_row, p.a_stages, p.b_bytes,
+            p.bufs, p.smem, *p.box]
+
+
+def gather_deconv(p: DeconvPlan, x_padded: torch.Tensor) -> torch.Tensor:
+    """A (B, 2m, 2m, 16 steps) as K4's consumers read it: each tile (input
+    row i of image b) loads, for output row 2i + pp, box h of each half at
+    origin (32 h, 0, pp, 1, b (m + 2) + i + 1) of the plane viewed as (C, 2
+    [q], 2 [p], m + 2 [j], B (m + 2) [b, i]), zeros where the box runs past
+    C, into rows 2j + q of its wrow GEMM rows; rows past 2m stay NaN and are
+    not stored (the TMA store clips them). Consumer pp reads each m64 tile's
+    16-deep step k at half k // 2, channels 16 (k % 2) onward."""
+    b, mp, c4 = x_padded.shape[0], x_padded.shape[1], x_padded.shape[-1]
+    m, c = mp - 2, c4 // 4
+    view = x_padded.reshape(b * mp, mp, 2, 2, c)  # [b, i] [j] [p] [q] [c]: the plane itself
+    view = F.pad(view, (0, p.halves * HALF - c))  # the box's channels past C: zeros
+    a = torch.full((b, 2 * m, 2 * m, p.steps * 16), float("nan"), dtype=x_padded.dtype)
+    for r in range(b * m):
+        bb, i = divmod(r, m)
+        for pp in range(2):
+            rows = torch.full((p.wrow, p.halves * HALF), float("nan"), dtype=x_padded.dtype)
+            for h in range(p.halves):
+                box = view[bb * mp + i + 1, 1:1 + m, pp, 0:2, h * HALF:(h + 1) * HALF]
+                rows[:2 * m, h * HALF:(h + 1) * HALF] = box.reshape(2 * m, HALF)  # row 2j + q
+            for x0 in range(0, p.wrow, 64):  # the consumer's m64 tiles
+                tile = torch.cat([rows[x0:x0 + 64, (k // 2) * HALF + 16 * (k % 2):][:, :16]
+                                  for k in range(p.steps)], dim=1)
+                live = min(64, 2 * m - x0)
+                a[bb, 2 * i + pp, x0:x0 + live] = tile[:live]
+    return a
+
+
+def library_deconv_plan(m: int, c4: int, o4: int) -> list[int]:
+    """The built library's own K4 plan (``depgan_deconv_plan``), in the
+    layout of ``deconv_ints``: needs the library."""
+    import ctypes
+
+    from . import _cuda
+
+    buf = (ctypes.c_int * 16)()
+    wrote = _cuda.library().depgan_deconv_plan(m, c4, o4, buf, 16)
+    if wrote < 0:
+        raise ValueError(f"depgan_deconv_plan refused m {m}, 4C {c4}, 4O {o4}")
+    return list(buf[:wrote])
+
+
+def fragment_columns(bn: int) -> dict[tuple[int, int], int]:
+    """The wgmma accumulator's lane map (``Wgmma`` in ``wgmma_device.cuh``):
+    lane q of a quad holds, in register 4 j + 2 i + h, column 8 j + 2 q + h
+    of its row in half i. Returns (q, register) -> column for i = 0."""
+    return {(q, 4 * j + h): 8 * j + 2 * q + h for q in range(4) for j in range(bn // 8)
+            for h in range(2)}
+
+
+def head_chain(bn: int, co4: int) -> list[tuple[int, int]]:
+    """K9's head chain (``head_epilogue``): the (lane, register) each step
+    shuffles from, in order: step c reads lane (c // 2) % 4, register
+    4 (c // 8) + c % 2, for c below 4Co."""
+    return [((c >> 1) & 3, 4 * (c >> 3) + (c & 1)) for c in range(min(bn, co4))]

@@ -1016,3 +1016,117 @@ def test_chain3_wgmma_equals_sequential(cuda, site):
     assert diff == 0.0
     assert wgmma_plan.library_chain_plan(n, c4s, c4m, c4m, pool) == wgmma_plan.chain_ints(
         wgmma_plan.chain_plan(n, c4s, c4m, c4m, pool))
+
+
+# bf16 K4 on the wgmma deconv against the engine's K4: (batch, m, 4C, 4O):
+# the serving and superstep shape (m 64, C 64) and its first_fm 8 widths
+# (C 16, 4O 64), the card's ragged C = 8 at m 6 (2m = 12 of a 64-row tile),
+# 4O past 256 (two column blocks of 192, then of 256), and the plan's
+# fallbacks: one A tile (m 64, 4O 512), and one A tile with one staging
+# buffer a consumer at C 96 (two k-tiles of B, three boxes a row).
+DECONV_WGMMA = {"m64_256_256": (2, 64, 256, 256), "m64_64_64": (2, 64, 64, 64),
+                "m6_32_64": (2, 6, 32, 64), "m8_128_320": (2, 8, 128, 320),
+                "m5_32_512": (3, 5, 32, 512), "m64_256_512": (1, 64, 256, 512),
+                "m48_384_384": (1, 48, 384, 384)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(DECONV_WGMMA))
+def test_deconv_wgmma_equals_engine(cuda, case):
+    """bf16 K4 (the wgmma deconv) against the plain version (bf16
+    tolerances, the ring exactly zero on an output whose memory held NaNs)
+    and against the engine's K4 on the same inputs, bit for bit: both sum
+    each output in 16-deep steps in k order. The library's plan equals
+    ``ops/wgmma_plan.py``."""
+    b, m, c4, o4 = DECONV_WGMMA[case]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = K.pad_s2d(torch.randn(b, m, m, c4, generator=g, device=cuda)).bfloat16()
+    w2 = (torch.randn(c4 // 4, o4, generator=g, device=cuda) * (c4 / 4) ** -0.5).bfloat16()
+    bias = torch.randn(o4, generator=g, device=cuda) * 0.1
+    ref = K.deconv_s2d_plain(x, w2, bias)
+    poison = torch.full(ref.shape, float("nan"), dtype=ref.dtype, device=cuda)
+    del poison  # the kernel's output likely reuses this NaN-filled memory
+    before = K.launches()["deconv_s2d"]
+    out = K._deconv_impl(x, w2, bias)
+    torch.cuda.synchronize()
+    assert K.launches()["deconv_s2d"] == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    assert _ring_zero(out)
+    engine = probes.deconv_engine(x, w2, bias)
+    assert K.launches()["deconv_s2d"] == before + 1
+    diff = float((out.float() - engine.float()).abs().max())
+    print(f"K4 wgmma {case}: max abs {diff:.3e} from the engine")
+    assert diff == 0.0
+    assert wgmma_plan.library_deconv_plan(m, c4, o4) == wgmma_plan.deconv_ints(
+        wgmma_plan.deconv_plan(m, c4, o4))
+
+
+# bf16 K9 on the mainloop's head epilogue against the engine's K9: n 12
+# (the cp.async route) and 128 (TMA boxes), 4C 128, 4Co 64, 128 and 256
+# (tiles of 256 x 64, 256 x 128 and 128 x 256 rows x columns), h4 4 and 16.
+HEAD_WGMMA = [(n, co4, h4) for n in (12, 128) for co4 in (64, 128, 256) for h4 in (4, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,co4,h4", HEAD_WGMMA)
+def test_head_wgmma_equals_engine(cuda, n, co4, h4):
+    """bf16 K9 (the head epilogue of the wgmma mainloop) against the plain
+    version (bf16 atol = rtol = 1e-2) and against the engine's K9 on the same
+    inputs, bit for bit: the conv sums in the engine's order, and the head
+    chain adds the columns 0 .. 4Co - 1 in order."""
+    g = torch.Generator(device=cuda).manual_seed(n + co4 + h4)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * std
+
+    args = (K.pad_s2d(randn(2, n, n, 128)).bfloat16(),
+            randn(2, 2, 128, co4, std=512 ** -0.5).bfloat16(), randn(co4, std=0.1),
+            randn(1, 1, co4, h4, std=co4 ** -0.5), randn(h4, std=0.1))
+    before = K.launches()["conv3x3_s2d_fused_head"]
+    out = K.conv3x3_s2d_fused_head(*args)
+    torch.cuda.synchronize()
+    assert K.launches()["conv3x3_s2d_fused_head"] == before + 1
+    ref = K.conv3x3_s2d_fused_head_plain(*args)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, atol=1e-2, rtol=1e-2)
+    engine = probes.conv3x3_head_engine(*args)
+    assert K.launches()["conv3x3_s2d_fused_head"] == before + 1
+    diff = float((out - engine).abs().max())
+    route = wgmma_plan.plan(n, (128,), co4).route
+    print(f"K9 wgmma n {n} ({route}) 128->{co4}->{h4}: max abs {diff:.3e} from the engine")
+    assert diff == 0.0
+
+
+@pytest.mark.gpu
+def test_deconv_and_head_wgmma_refusals(cuda):
+    """What the bf16 K4 and K9 kernels do not take raises and launches
+    nothing, the wrappers' checks and the library's own alike: no shape
+    goes to the engine in their place."""
+    before = K.launches()
+    x = K.pad_s2d(torch.randn(1, 4, 4, 1024, device=cuda)).bfloat16()
+    w2 = torch.zeros(256, 1024, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="wgmma deconv"):  # B does not fit beside its tiles
+        K._deconv_impl(x, w2, torch.zeros(1024, device=cuda))
+    x = K.pad_s2d(torch.randn(1, 257, 257, 32, device=cuda)).bfloat16()
+    with pytest.raises(ValueError, match="wgmma deconv"):  # m past a box's 256
+        K._deconv_impl(x, torch.zeros(8, 64, device=cuda).bfloat16(),
+                       torch.zeros(64, device=cuda))
+    x = K.pad_s2d(torch.randn(2, 8, 8, 64, device=cuda)).bfloat16()
+    with pytest.raises(ValueError, match="Ho4 <= 16"):
+        K.conv3x3_s2d_fused_head(x, torch.zeros(2, 2, 64, 64, device=cuda).bfloat16(),
+                                 torch.zeros(64, device=cuda),
+                                 torch.zeros(1, 1, 64, 20, device=cuda),
+                                 torch.zeros(20, device=cuda))
+    assert K.launches() == before
+    lib, s = K._cuda.library(), K._cuda.stream(cuda)
+    out = torch.empty(2, 8, 8, 32, device=cuda)
+    w4 = torch.zeros(2, 2, 64, 264, device=cuda).bfloat16()
+    wh, bh = torch.zeros(264, 32, device=cuda).bfloat16(), torch.zeros(32, device=cuda)
+    bias = torch.zeros(264, device=cuda)
+    for co4, h4 in ((264, 4), (64, 17), (64, 0)):  # past one column block; past 16 head columns
+        assert lib.depgan_conv3x3_s2d_fused_head(1, x.data_ptr(), w4.data_ptr(), bias.data_ptr(),
+                                                 wh.data_ptr(), bh.data_ptr(), out.data_ptr(), 2,
+                                                 8, 64, co4, h4, s) != 0
+    assert lib.depgan_deconv_s2d(1, x.data_ptr(), w4.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                 2, 300, 64, 64, s) != 0
+    torch.cuda.synchronize()
