@@ -47,7 +47,18 @@
    float32 generator with exactly the launches of OPTION_LAUNCHES,
    ``fuse_chain`` identical to the default forward (or within the kernel
    phase's chain-to-sequential difference), and ms per forward beside the
-   default path's.
+   default path's. 3c. The testing path: a synthetic fold (2 subjects of 42
+   slices, every test modality, written as .nii.gz) through
+   ``run_gan_testing`` and ``run_uresnet_testing`` at full width with
+   n_repeat 10, fast (bf16, exactly 8/2/2/1 launches a forward) and plain
+   float32, the weights passed in memory (the card's machine has no h5py):
+   the written fast maps equal ``EnsemblePredictor.predict`` bit for bit,
+   fast and plain maps within 0.05, both recaps 2 rows of 18 columns with
+   Dice and volume differences within TESTING_LIMITS (a float32 control
+   within, a run with wrong weights outside), ms per subject with its data
+   load, ensemble and metrics + writers parts. 3d. The width gate: the bf16
+   ``FastGenerator`` at first_fm 48 and 64 within 0.05 of the plain float32
+   generator, each site's route printed, launches as the routes give them.
 4. Backward: every autograd rule at the production shapes (float32, batch
    2) against autograd of its plain version, and the 5x5 conv's double
    backward; the 5x5 rule at L0a and L0b and its double backward at L0a
@@ -352,6 +363,20 @@ OPTION_CASES = (
 FILM_CASES = tuple(("film_residual", f"{site} {h}x{h}x{c}", (h, h, c)) for site, h, c in (
     ("m1", 256, 32), ("m2", 128, 64), ("m3", 64, 96), ("p4", 32, 128),
     ("p3", 64, 96), ("p2", 128, 64), ("p1", 256, 32)))
+# Phase 3c, the testing path: the synthetic fold's subjects and the limits
+# on the CSV rows of the fast (bf16) run against the plain float32 run, per
+# subject: the largest difference of the 8 Dice columns, and of the
+# predicted WMH volume as a share of the subject's mask. bf16 moves voxels
+# that sit near the 0.5 threshold (near the top-two tie of the softmax),
+# so the limits sit between the float32 control (the fast path in float32)
+# and a wrong run (the fast path with another checkpoint's weights), which
+# must fail them: on the H100, bf16 read at most 6.0e-4 (Dice) and 6.5e-4
+# (volume), the float32 control 8.5e-7, the wrong run at least 3.9e-2 and
+# 4.8e-2; 5e-3 is near the geometric middle (PERF.md section 6).
+TESTING_SUBJECTS, TESTING_SLICES = 2, 42
+TESTING_LIMITS = {"dice": 5e-3, "volume": 5e-3}
+# Phase 3d: first_fm widths at which the wgmma plans refuse some site.
+WIDTH_CASES = (48, 64)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1778,6 +1803,287 @@ def run_probes(smi: str) -> tuple[dict, dict]:
     return launches, timing
 
 
+def write_test_fold(root: Path, n_subjects: int, size: int, n_slices: int, seed: int) -> Path:
+    """A synthetic one-fold test set under ``root``, as the JAX package's
+    ``tests/test_eval.py:106-143`` writes it: every modality of
+    ``GAN_TEST_MODALITIES`` and ``URESNET_TEST_MODALITIES`` of each subject
+    as .nii.gz (the sl_cleaned files listed but missing), the manifests and
+    the names. Returns the manifest directory."""
+    from depgan_tpu_torch.data import manifest, nifti
+
+    rng = np.random.default_rng(seed)
+    mdir = root / "manifests"
+    mdir.mkdir()
+    modalities = tuple(dict.fromkeys(manifest.GAN_TEST_MODALITIES
+                                     + manifest.URESNET_TEST_MODALITIES))
+    lists = {m: [] for m in modalities}
+    shape = (size, size, n_slices)
+    for s in range(n_subjects):
+        sd = root / f"subj{s}"
+        sd.mkdir()
+        vols = {"flair_1tp": rng.uniform(0, 100, shape), "iam_1tp": rng.uniform(0, 1, shape),
+                "wmh_prob_v2_1tp": rng.uniform(0, 1, shape),
+                "wmh_prob_v2_2tp": rng.uniform(0, 1, shape),
+                "icv_1tp": np.ones(shape), "icv_2tp": np.ones(shape),
+                "wmh_1tp": rng.uniform(0, 1, shape) > 0.8,
+                "wmh_2tp": rng.uniform(0, 1, shape) > 0.8,
+                "wmh_subtracted_coded_2tp_1tp": rng.integers(0, 4, shape)}
+        for m in modalities:
+            path = sd / f"{m}.nii.gz"
+            if m in vols:
+                nifti.save(vols[m].astype(np.float32), np.eye(4), path)
+            lists[m].append(str(path))
+    for m, paths in lists.items():
+        (mdir / f"{m}_fold1.txt").write_text("\n".join(paths) + "\n")
+    (mdir / "name_fold1.txt").write_text(
+        "\n".join(f"SUBJ{s:03d}" for s in range(n_subjects)) + "\n")
+    return mdir
+
+
+def row_differences(rows: np.ndarray, ref: np.ndarray, mask_ml: np.ndarray) -> dict[str, float]:
+    """The largest per-subject difference of the 8 Dice columns of two
+    recaps' rows, and of the predicted volume as a share of the subject's
+    mask volume ``mask_ml`` (the ICV and not-lesion mask, where the
+    prediction lives)."""
+    from depgan_tpu_torch.eval.metrics import CSV_COLUMNS
+
+    dice = [i for i, c in enumerate(CSV_COLUMNS) if "dice" in c]
+    vol = CSV_COLUMNS.index("vol_pred_ml")
+    return {"dice": float(np.abs(rows[:, dice] - ref[:, dice]).max()),
+            "volume": float((np.abs(rows[:, vol] - ref[:, vol]) / mask_ml).max())}
+
+
+def calibrated_variables(cfg, seed: int, x: torch.Tensor) -> dict:
+    """``randomized_variables`` with the 1x1 head rescaled and re-centred so
+    that its logits over the slices ``x`` have mean 0 and standard deviation
+    0.5 (one noise draw, the plain float32 generator): a DEM spread over
+    (-1, 1), or class probabilities away from one-hot, as a trained
+    generator's are, instead of saturated random logits whose thresholded
+    maps no small error can move."""
+    from depgan_tpu_torch.io.flax_bridge import load_flax_variables
+    from depgan_tpu_torch.models import GenUNet2D
+
+    variables = randomized_variables(cfg, seed)
+    module = load_flax_variables(GenUNet2D(cfg, device=DEVICE), variables).eval()
+    logits = []
+    hook = module.gen_segmentation.register_forward_hook(lambda m, i, o: logits.append(o))
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        module(x, torch.randn((x.shape[0], cfg.noise_size, 1), generator=g, device=DEVICE))
+    hook.remove()
+    mean = logits[0].float().mean(dim=(0, 1, 2)).cpu().numpy()
+    scale = np.float32(0.5 / float(logits[0].float().std()))
+    head = variables["params"]["gen_segmentation"]
+    head["kernel"] = (head["kernel"] * scale).astype(np.float32)
+    head["bias"] = ((head["bias"] - mean) * scale).astype(np.float32)
+    return variables
+
+
+def check_testing_path(seed: int, smi: str) -> dict[str, int]:
+    """Phase 3c: the testing path end to end. A synthetic fold (2 subjects
+    of 42 slices at 256x256, written with the port's NIfTI writer) through
+    ``run_gan_testing`` and ``run_uresnet_testing`` at full width with
+    ``n_repeat`` 10: once with ``fast`` (bf16, K1-K4, exactly 8/2/2/1
+    launches a forward), once plain in float32. The fast run's written maps
+    equal ``EnsemblePredictor.predict`` with the runner's seed bit for bit;
+    fast and plain maps agree within 0.05; both recaps hold 2 rows of 18
+    columns, whose Dice and volume differences are held to TESTING_LIMITS,
+    which the float32 control passes and a run with another checkpoint's
+    weights must fail. Prints ms per subject host to host, and the data
+    load, ensemble and metrics + writers parts. Returns the fast runs'
+    launches."""
+    import tempfile
+
+    from depgan_tpu_torch.config import DataConfig, EvalConfig, ModelConfig
+    from depgan_tpu_torch.data import dataset, native, nifti
+    from depgan_tpu_torch.eval import runner
+    from depgan_tpu_torch.eval.metrics import CSV_COLUMNS, csv_row, volume_ml
+    from depgan_tpu_torch.eval.predict import EnsemblePredictor, reconstruct_follow_up
+    from depgan_tpu_torch.eval.writers import write_gan_outputs, write_uresnet_outputs
+    from depgan_tpu_torch.ops import conv_s2d as K
+
+    fold, total = 1, dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="depgan_fold_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        mdir = write_test_fold(root, TESTING_SUBJECTS, IMAGE, TESTING_SLICES, seed)
+        print(f"testing: wrote {TESTING_SUBJECTS} subjects x 11 modalities of "
+              f"{IMAGE}x{IMAGE}x{TESTING_SLICES} .nii.gz in {time.perf_counter() - t0:.2f} s; "
+              f"NIfTI reader: {'native C++' if native.available() else 'numpy'}")
+        data_cfg = DataConfig(manifest_dir=str(mdir), image_size=IMAGE)
+        kinds = {
+            "gan": (ModelConfig(image_size=IMAGE, first_fm=32), runner.run_gan_testing,
+                    dataset.iter_gan_test_subjects, "RECAP_evaluation_for_allData.csv"),
+            "uresnet": (ModelConfig(image_size=IMAGE, first_fm=32, n_out=4,
+                                    dropout_mode="uresnet"), runner.run_uresnet_testing,
+                        dataset.iter_uresnet_test_subjects, "vol_dsc_all.csv")}
+        for i, (kind, (cfg, run, subjects_of, csv)) in enumerate(kinds.items()):
+            first = next(iter(subjects_of(data_cfg, fold)))
+            x = torch.as_tensor(first.gen_input if kind == "gan" else first.flair, device=DEVICE)
+            variables = calibrated_variables(cfg, seed + i, x)
+            wrong = calibrated_variables(cfg, seed + i + 100, x)
+            eval_cfg = EvalConfig(n_repeat=N_REPEAT, seed=seed)
+            rows, ms = {}, {}
+            for tag, fast, weights in (("fast", True, variables), ("plain", False, variables)):
+                out = root / f"{kind}_{tag}"
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                results = run(cfg, data_cfg, dataclasses.replace(eval_cfg, fast=fast),
+                              lambda f, w=weights: w, folds=(fold,), out_dir=out, device=DEVICE)
+                ms[tag] = (time.perf_counter() - t0) * 1e3 / TESTING_SUBJECTS
+                launches = K.launches()
+                check(len(results) == TESTING_SUBJECTS, f"{kind} {tag}: {len(results)} subjects")
+                rows[tag] = np.loadtxt(out / csv, delimiter=",", skiprows=1, ndmin=2)
+                check(rows[tag].shape == (TESTING_SUBJECTS, len(CSV_COLUMNS)) and
+                      bool(np.isfinite(rows[tag]).all()),
+                      f"{kind} {tag}: recap {rows[tag].shape}")
+                forwards = TESTING_SUBJECTS * N_REPEAT if fast else 0
+                want = {k: LAUNCHES_PER_FORWARD.get(k, 0) * forwards for k in KERNELS}
+                check(launches == want, f"{kind} {tag}: launches {launches}, expected {want}")
+                for k, v in launches.items():
+                    total[k] += v
+
+            # The written maps against the predictor, and fast against plain.
+            t0 = time.perf_counter()
+            subjects = list(subjects_of(data_cfg, fold))
+            load_ms = (time.perf_counter() - t0) * 1e3 / TESTING_SUBJECTS
+            predictor = EnsemblePredictor(cfg, variables, N_REPEAT, seed=seed + fold, fast=True,
+                                          device=DEVICE)
+            preds, ensemble_ms, rest_ms = [], 0.0, 0.0
+            for subject in subjects:
+                x = subject.gen_input if kind == "gan" else subject.flair
+                t0 = time.perf_counter()
+                pred = predictor.predict(x, subject.icv_sl_mask_2tp)
+                ensemble_ms += (time.perf_counter() - t0) * 1e3 / TESTING_SUBJECTS
+                t0 = time.perf_counter()
+                scratch = root / f"{kind}_timing"
+                if kind == "gan":
+                    dem = np.squeeze(pred, axis=-1)
+                    vol, dices, y2, code = runner.evaluate_gan_subject(
+                        subject, dem, eval_cfg.wmh_threshold)
+                    write_gan_outputs(scratch, subject.name, subject.affine, subject.pixdim, y2,
+                                      dem, code)
+                else:
+                    vol, dices, labels = runner.evaluate_uresnet_subject(subject, pred)
+                    write_uresnet_outputs(scratch, subject.name, subject.affine, subject.pixdim,
+                                          labels, pred)
+                csv_row(vol, dices)
+                rest_ms += (time.perf_counter() - t0) * 1e3 / TESTING_SUBJECTS
+                preds.append(pred)
+            mask_ml = np.array([volume_ml(subj.icv_sl_mask_2tp, subj.pixdim) for subj in subjects])
+            worst, near = 0.0, []
+            for subject, pred in zip(subjects, preds):
+                inside = subject.icv_sl_mask_2tp > 0
+                if kind == "gan":  # masked-in y2_fake within 0.01 of the threshold
+                    y2 = reconstruct_follow_up(subject.prob_1tp, pred[..., 0])
+                    near.append(float((np.abs(y2 - eval_cfg.wmh_threshold) < 0.01)[inside].mean()))
+                else:  # masked-in voxels whose top two classes lie within 0.01
+                    top2 = np.sort(pred, axis=-1)[..., -2:]
+                    near.append(float((top2[..., 1] - top2[..., 0] < 0.01)[inside].mean()))
+                # The GAN's DEM map, the UResNet's class-probability maps.
+                maps = ({"network_output": pred[..., 0]} if kind == "gan" else
+                        {f"prb_map_c{c}": pred[..., c] for c in range(pred.shape[-1])})
+                for what, slices in maps.items():
+                    written = {tag: nifti.load(root / f"{kind}_{tag}" / (
+                        "" if kind == "gan" else subject.name) / f"{subject.name}_{what}.nii.gz"
+                    ).image for tag in ("fast", "plain")}
+                    check(np.array_equal(written["fast"], nifti.slices_to_volume(slices).astype(
+                        np.float32)), f"{kind} {subject.name} {what}: the written fast map is "
+                                      f"not the predictor's bit for bit")
+                    diff = float(np.abs(written["fast"] - written["plain"]).max())
+                    check(diff < 0.05, f"{kind} {subject.name} {what}: fast vs plain {diff:.4f}")
+                    worst = max(worst, diff)
+
+            # The rows, with the float32 control and the wrong run beside.
+            readings = {"fast bf16": row_differences(rows["fast"], rows["plain"], mask_ml)}
+            for tag, weights, dtype in (("control float32", variables, torch.float32),
+                                        ("control wrong weights", wrong, torch.bfloat16)):
+                pred = EnsemblePredictor(cfg, weights, N_REPEAT, seed=seed + fold, fast=True,
+                                         device=DEVICE, compute_dtype=dtype)
+                ctl = []
+                for subject in subjects:
+                    if kind == "gan":
+                        dem = np.squeeze(pred.predict(subject.gen_input, subject.icv_sl_mask_2tp),
+                                         axis=-1)
+                        vol, dices, _, _ = runner.evaluate_gan_subject(
+                            subject, dem, eval_cfg.wmh_threshold)
+                    else:
+                        vol, dices, _ = runner.evaluate_uresnet_subject(
+                            subject, pred.predict(subject.flair, subject.icv_sl_mask_2tp))
+                    ctl.append(csv_row(vol, dices))
+                readings[tag] = row_differences(np.array(ctl), rows["plain"], mask_ml)
+            for tag, r in readings.items():
+                passes = all(r[k] <= TESTING_LIMITS[k] for k in TESTING_LIMITS)
+                print(f"testing {kind} {tag} against plain float32: max |d dice| "
+                      f"{r['dice']:.4e}, max |d vol_pred| / mask volume {r['volume']:.4e}"
+                      f" ({'within' if passes else 'outside'} {TESTING_LIMITS})")
+                check(passes != tag.startswith("control wrong"),
+                      f"testing {kind} {tag}: {r} against the limits {TESTING_LIMITS}")
+            print(f"testing {kind} on {smi}: {TESTING_SUBJECTS} subjects of {TESTING_SLICES} "
+                  f"slices, n_repeat {N_REPEAT}: fast {ms['fast']:.1f} ms a subject host to "
+                  f"host (plain float32 {ms['plain']:.1f}); parts, run one after another: data "
+                  f"load {load_ms:.1f}, ensemble {ensemble_ms:.1f}, metrics + writers "
+                  f"{rest_ms:.1f} ms a subject; fast vs plain maps max abs {worst:.4e}; "
+                  f"masked-in voxels within 0.01 of a decision {near}; "
+                  f"vol_pred_ml fast {rows['fast'][:, CSV_COLUMNS.index('vol_pred_ml')]}, "
+                  f"plain {rows['plain'][:, CSV_COLUMNS.index('vol_pred_ml')]}")
+    return total
+
+
+def check_widths(seed: int) -> dict[str, int]:
+    """Phase 3d: the bf16 ``FastGenerator`` at each first_fm of WIDTH_CASES
+    (image 256, one 42-slice batch) against the plain float32 generator
+    (max abs < 0.05), each site's route printed (wgmma, engine, pool, or
+    plain: the width gate's plain version); no site takes the plain path
+    where a kernel takes its widths (``fast_gen.gate_message``), and the
+    launches are those of the routes. Returns them."""
+    import warnings
+
+    from depgan_tpu_torch.config import ModelConfig
+    from depgan_tpu_torch.io.flax_bridge import load_flax_variables
+    from depgan_tpu_torch.models import GenUNet2D
+    from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.ops.fast_gen import FastGenerator, gate_message, taken_launches
+
+    total = dict.fromkeys(KERNELS, 0)
+    for first_fm in WIDTH_CASES:
+        cfg = ModelConfig(image_size=IMAGE, first_fm=first_fm)
+        variables = randomized_variables(cfg, seed + first_fm)
+        rng = np.random.default_rng(seed + first_fm)
+        x = torch.tensor(rng.uniform(size=(BATCH_SERVE, IMAGE, IMAGE, 1)), dtype=torch.float32,
+                         device=DEVICE)
+        z = torch.tensor(rng.normal(size=(BATCH_SERVE, cfg.noise_size, 1)), dtype=torch.float32,
+                         device=DEVICE)
+        with torch.no_grad():
+            ref = load_flax_variables(GenUNet2D(cfg, device=DEVICE), variables).eval()(x, z)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fast = FastGenerator(cfg, variables, torch.bfloat16, DEVICE)
+        K.reset_launch_counts()
+        out = fast(x, z)
+        torch.cuda.synchronize()
+        launches = K.launches()
+        got = {k: v for k, v in launches.items() if v}
+        check(got == taken_launches(cfg, fast.taken),
+              f"first_fm {first_fm}: launches {got}, the routes give "
+              f"{taken_launches(cfg, fast.taken)}")
+        plain = sorted(k for k, r in fast.taken.items() if r == "plain")
+        gated = gate_message(cfg, fast.routes)
+        check(not plain or (gated is not None and all(k in gated for k in plain)),
+              f"first_fm {first_fm}: {plain} ran plain, but a kernel takes their widths")
+        check(bool(caught) == (gated is not None), f"first_fm {first_fm}: warnings {caught}")
+        diff = float((out - ref).abs().max())
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()) and diff < 0.05,
+              f"first_fm {first_fm}: max abs {diff:.4f} from the plain float32 generator")
+        print(f"widths first_fm {first_fm}: max abs {diff:.4e} from the plain float32 "
+              f"generator, launches {got}, routes "
+              + ", ".join(f"{k} {r}" for k, r in fast.taken.items())
+              + (f"; the gate warned: {gated}" if gated else "; the gate: every site a kernel"))
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1837,6 +2143,10 @@ def main() -> int:
           f"softmax {uresnet_diff:.4e}, launches {serving}")
     options, option_ms = check_serving_options(gan, seed=2, smi=smi)
     phase_done("serving and serving options: passed")
+    testing = check_testing_path(seed=5, smi=smi)
+    phase_done("testing path: passed")
+    widths = check_widths(seed=6)
+    phase_done("widths: passed")
 
     # Phases 4-6: the training path's correctness, float32, on the default
     # path and with CONV5_PACKED.
@@ -1972,6 +2282,7 @@ def main() -> int:
         else:
             timing, unit = per_forward[name], "per serving forward"
         runs = {"serving": serving[name], "serving_options": options[name],
+                "testing": testing[name], "widths": widths[name],
                 "superstep": superstep[name], "superstep_packed": superstep_packed[name],
                 "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name],
                 "probes": probes_launches[name]}

@@ -1,8 +1,9 @@
 """Configuration of the port.
 
-The fields of ``depgan_tpu/config.py``'s ``ModelConfig``, ``DataConfig``,
-``GanTrainConfig`` and ``UResNetTrainConfig`` that the port reads, with the
-same names, types and defaults (a test holds them equal). The port keeps its own copy so that it
+``depgan_tpu/config.py``'s ``DataConfig`` and ``EvalConfig`` in full, and
+the fields of its ``ModelConfig``, ``GanTrainConfig`` and
+``UResNetTrainConfig`` that the port reads, with the same names, types and
+defaults (tests hold them equal). The port keeps its own copy so that it
 imports nothing of the JAX package.
 """
 
@@ -49,10 +50,28 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The data knob the trainer reads: which WMH threshold applies."""
+    """Data manifests + preprocessing knobs.
 
+    The manifest format is preserved verbatim from the reference: one
+    modality per ``<modality>_fold<k>.txt`` file under ``manifest_dir``, one
+    absolute NIfTI path per line, index-aligned across modalities, with
+    missing files silently skipped (reference
+    ``...twoCritics_training_4fold.py:613-666``).
+    """
+
+    manifest_dir: str = "train_data_server_fold"
+    folds: tuple[int, ...] = (1, 2, 3, 4)
+    image_size: int = 256
+    # Number of generator input channels: 1 = map only, 2 = concat(map, FLAIR)
+    # (reference :22, :718-722).
+    n_input_channels: int = 1
     # True: probability maps (threshold 0.5); False: irregularity maps (0.178).
     use_probability_map: bool = True
+    # Percentile used by the robust min-max normaliser (reference :704).
+    norm_percentile: float = 0.0
+    # Fraction of slices held out for validation (reference :742).
+    val_fraction: float = 0.02
+    split_seed: int = 42
 
     @property
     def wmh_threshold(self) -> float:
@@ -104,3 +123,21 @@ class UResNetTrainConfig:
     shuffle_each_epoch: bool = True
     checkpoint_every: int = 1  # epochs (reference saves every epoch, :620-625)
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Inference + evaluation (DEP-GAN_testing_4fold.py:12-37,616-628)."""
+
+    n_repeat: int = 10  # stochastic ensemble size
+    use_probability_map: bool = True
+    n_input_channels: int = 1
+    output_dir: str = "outputs"
+    seed: int = 0
+    # Serve through FastGenerator (folded BN, the s2d kernels, a bfloat16
+    # trunk) instead of the plain module.
+    fast: bool = False
+
+    @property
+    def wmh_threshold(self) -> float:
+        return _threshold_for(self.use_probability_map)

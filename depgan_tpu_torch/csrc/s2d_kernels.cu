@@ -57,12 +57,15 @@
 // K1, K2, K3, K7 and K9 take the wgmma mainloop in bf16, K4 the wgmma
 // deconv, and all of them the engine in float32, whose CUDA-core FMAs are
 // the exact indexing check; a bf16 shape the wgmma kernels refuse is an
-// error, never an engine launch. depgan_conv3x3_s2d_engine (K1, K2, K3),
-// depgan_conv5x5_s2d_engine (K7), depgan_conv3x3_s2d_fused_head_engine (K9)
-// and depgan_deconv_s2d_engine (K4) launch the engine in either dtype, the
-// float32 path of those entry points and, in bf16, the reference that the
-// wgmma kernels, the chains (K10, K12) and the probes P1 and P2 sum like:
-// no wrapper calls them.
+// error of these entry points, never an engine launch.
+// depgan_conv3x3_s2d_engine (K1, K2, K3), depgan_conv5x5_s2d_engine (K7),
+// depgan_conv3x3_s2d_fused_head_engine (K9) and depgan_deconv_s2d_engine
+// (K4) launch the engine in either dtype: the float32 path of those entry
+// points and, in bf16, the reference that the wgmma kernels, the chains
+// (K10, K12) and the probes P1 and P2 sum like. In bf16 the wrappers call
+// the engine's K2 at 4Co the wgmma pool does not take (not 32, 64, 128 or
+// 256) and its K4 where the wgmma deconv's plan refuses, as the Python
+// width rule (ops/conv_s2d.py, kernel_route) decides before the launch.
 //
 // dtype: 0 = float32, 1 = bfloat16. Every entry point returns
 // cudaGetLastError() after its launch, or an error code for arguments the

@@ -1,11 +1,16 @@
-"""Epoch batching.
+"""Epoch batching and the threaded subject prefetch.
 
-Counterpart of ``EpochShuffler`` in ``depgan_tpu/data/pipeline.py`` (:47-61),
-which the port cannot import (that module imports jax). It stays numpy, so
-for one seed the port's trainer walks the JAX trainer's exact batches.
+Counterparts of ``EpochShuffler`` and ``prefetch`` in
+``depgan_tpu/data/pipeline.py`` (:47-88), which the port cannot import (that
+module imports jax). ``EpochShuffler`` stays numpy, so for one seed the
+port's trainer walks the JAX trainer's exact batches.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator
 
 import numpy as np
 
@@ -25,3 +30,32 @@ class EpochShuffler:
         perm = self.rng.permutation(self.n)
         usable = self.n_batches * self.batch_size
         return perm[:usable].reshape(self.n_batches, self.batch_size).astype(np.int32)
+
+
+def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
+    """Background-thread prefetch for host-side pipelines (subject loading
+    at test time): the next subject's NIfTI decode runs while the device
+    serves this one. An exception of ``iterable`` is raised in the consumer
+    after the items before it."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    sentinel = object()
+    err: list[BaseException] = []
+
+    def producer():
+        try:
+            for item in iterable:
+                q.put(item)
+        except BaseException as e:  # handed to the consumer, which raises it
+            err.append(e)
+        finally:
+            q.put(sentinel)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            if err:
+                raise err[0]
+            return
+        yield item

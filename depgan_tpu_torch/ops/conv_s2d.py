@@ -46,7 +46,7 @@ from .s2d_conv import (
     flip_transpose_w5,
     s2d_unshifted,
 )
-from .wgmma_plan import POOL_WIDTHS, chain_plan, conv5_window_takes, deconv_plan
+from .wgmma_plan import POOL_WIDTHS, chain_plan, chain_takes, conv5_window_takes, deconv_takes
 
 _EPILOGUES = {"relu": 0, "film": 1, "none": 2}
 _POOLS = {"pixel": 1, "s2d": 2}
@@ -357,8 +357,9 @@ def conv3x3_s2d_fused_pool(x_padded, w4, bias4, pool="s2d"):
     output (serving only: no gradient, as in JAX). Returns (out, pooled):
     pooled is the next level's padded s2d (B, N/2+2, N/2+2, 4Co) for
     ``pool='s2d'`` or the pixel-domain pool (B, N, N, Co) for ``'pixel'``.
-    The kernel takes 4Co <= 256 in float32 (the engine) and 4Co of 32, 64,
-    128 or 256 in bfloat16 (the wgmma mainloop's pool in registers)."""
+    The kernel takes 4Co <= 256: in bfloat16 the wgmma mainloop's pool in
+    registers at 4Co of 32, 64, 128 or 256 and the engine at the other
+    widths (``kernel_route``), in float32 the engine."""
     b, n, c4 = _check_plane("conv3x3_s2d_fused_pool", x_padded)
     co4 = w4.shape[-1]
     _check_weight("w4", w4, (2, 2, c4, co4), x_padded.dtype)
@@ -368,8 +369,6 @@ def conv3x3_s2d_fused_pool(x_padded, w4, bias4, pool="s2d"):
     if not _on_cuda(x_padded, w4, bias4):
         return conv3x3_s2d_fused_pool_plain(x_padded, w4, bias4, pool)
     _require(co4 <= 256, "the fused pool kernel takes at most 256 output channels")
-    _require(x_padded.dtype != torch.bfloat16 or co4 in POOL_WIDTHS,
-             f"the fused pool kernel takes 4Co {POOL_WIDTHS} in bfloat16, got {co4}")
     _check_kernel_widths(co4, c4)
     dev, dt = x_padded.device, x_padded.dtype
     out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)
@@ -377,12 +376,20 @@ def conv3x3_s2d_fused_pool(x_padded, w4, bias4, pool="s2d"):
         pooled = torch.empty((b, n // 2 + 2, n // 2 + 2, co4), dtype=dt, device=dev)
     else:
         pooled = torch.empty((b, n, n, co4 // 4), dtype=dt, device=dev)
+    problem = (b, n, c4, co4, pool)
+    ptrs = (x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr())
     with torch.cuda.device(dev):
-        _launch("conv3x3_s2d_fused_pool", (b, n, c4, co4, pool), "depgan_conv3x3_s2d_fused",
-                _cuda.DTYPE_CODES[dt],
-                x_padded.data_ptr(), w4.data_ptr(), bias4.data_ptr(), None, None,
-                out.data_ptr(), pooled.data_ptr(), b, n, c4, co4, _EPILOGUES["relu"],
-                _POOLS[pool], _cuda.stream(dev))
+        if dt == torch.bfloat16 and kernel_route("conv3x3_s2d_fused_pool", problem[1:],
+                                                 dt) == "engine":
+            _launch("conv3x3_s2d_fused_pool", problem, "depgan_conv3x3_s2d_engine",
+                    _cuda.DTYPE_CODES[dt], ptrs[0], None, ptrs[1], None, ptrs[2], None, None,
+                    out.data_ptr(), pooled.data_ptr(), b, n, c4, 0, co4, _EPILOGUES["relu"],
+                    _POOLS[pool], _cuda.stream(dev))
+        else:
+            _launch("conv3x3_s2d_fused_pool", problem, "depgan_conv3x3_s2d_fused",
+                    _cuda.DTYPE_CODES[dt], *ptrs, None, None, out.data_ptr(),
+                    pooled.data_ptr(), b, n, c4, co4, _EPILOGUES["relu"], _POOLS[pool],
+                    _cuda.stream(dev))
     return out, pooled
 
 
@@ -415,9 +422,9 @@ def _deconv_impl(x_padded, w2, bias4):
     """Deconv2x2 + bias + relu from padded s2d (B, M+2, M+2, 4C) into the
     finer level's padded s2d (B, 2M+2, 2M+2, 4O); w2 (C, 4O) is the Keras
     kernel in matmul form, bias4 (4O,) float32. bfloat16 runs the wgmma
-    deconv, which takes the widths ``wgmma_plan.deconv_plan`` takes (M <=
-    256, B and the tiles inside the shared memory) and raises for others;
-    float32 runs the engine."""
+    deconv at the widths ``wgmma_plan.deconv_plan`` takes (M <= 256, B and
+    the tiles inside the shared memory) and the engine, the same sums, at
+    the others (``kernel_route``); float32 runs the engine."""
     b, m, c4 = _check_plane("deconv_s2d", x_padded)
     o4 = w2.shape[-1]
     _check_weight("w2", w2, (c4 // 4, o4), x_padded.dtype)
@@ -425,12 +432,12 @@ def _deconv_impl(x_padded, w2, bias4):
     if not _on_cuda(x_padded, w2, bias4):
         return deconv_s2d_plain(x_padded, w2, bias4)
     _check_kernel_widths(o4, c4)
-    if x_padded.dtype == torch.bfloat16:
-        deconv_plan(m, c4, o4)  # raises for refusals
     dev, dt = x_padded.device, x_padded.dtype
+    entry = ("depgan_deconv_s2d_engine" if dt == torch.bfloat16
+             and kernel_route("deconv_s2d", (m, c4, o4), dt) == "engine" else "depgan_deconv_s2d")
     out = torch.empty((b, 2 * m + 2, 2 * m + 2, o4), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        _launch("deconv_s2d", (b, m, c4, o4), "depgan_deconv_s2d", _cuda.DTYPE_CODES[dt],
+        _launch("deconv_s2d", (b, m, c4, o4), entry, _cuda.DTYPE_CODES[dt],
                 x_padded.data_ptr(), w2.data_ptr(), bias4.data_ptr(), out.data_ptr(),
                 b, m, c4, o4, _cuda.stream(dev))
     return out
@@ -452,6 +459,55 @@ def _pool_impl(x_padded, to_s2d: bool):
         _launch(name, (b, n, c4), f"depgan_{name}", _cuda.DTYPE_CODES[dt], x_padded.data_ptr(),
                 out.data_ptr(), b, n, c4, _cuda.stream(dev))
     return out
+
+
+def kernel_route(name: str, problem: tuple, dtype) -> str | None:
+    """The kernel that a CUDA call of the wrapper counted as ``name`` runs at
+    ``problem`` (its shape arguments as ``SHAPES`` counts them, without the
+    batch) in ``dtype``, decided from the widths alone: 'wgmma' (the bf16
+    wgmma kernels), 'engine' (the GEMM engine, which sums as they do: every
+    float32 conv, and bf16 K2 at 4Co outside ``POOL_WIDTHS`` and K4 where
+    ``deconv_plan`` refuses), 'chain' (float32 K10, ``s2d_chain``), 'pool'
+    (K5, K6); None where no kernel takes the widths and the wrapper raises.
+    Covers the kernels of the generator's fused forward: K1-K6, K9, K10."""
+    bf16 = dtype == torch.bfloat16
+
+    def takes(co4, *c4s):
+        return co4 > 0 and co4 % 8 == 0 and all(c4 > 0 and c4 % 32 == 0 for c4 in c4s)
+
+    if name in ("conv3x3_s2d_fused", "conv3x3_s2d_fused[none]"):
+        _, c4, co4, _ = problem
+        ok = takes(co4, c4)
+    elif name == "conv3x3_s2d_fused2":
+        _, c4a, c4b, co4 = problem
+        ok = takes(co4, c4a, c4b)
+    elif name == "conv3x3_s2d_fused_pool":
+        n, c4, co4, pool = problem
+        if not (takes(co4, c4) and co4 <= 256 and (pool != "s2d" or n % 2 == 0)):
+            return None
+        return "wgmma" if bf16 and co4 in POOL_WIDTHS else "engine"
+    elif name == "conv3x3_s2d_fused_head":
+        _, c4, co4, h4 = problem
+        ok = takes(co4, c4) and co4 <= 256 and 0 < h4 <= 16
+    elif name == "deconv_s2d":
+        m, c4, o4 = problem
+        if not takes(o4, c4):
+            return None
+        return "wgmma" if bf16 and deconv_takes(m, c4, o4) else "engine"
+    elif name in ("pool_to_s2d", "pool_s2d"):
+        n, c4 = problem
+        return "pool" if c4 > 0 and c4 % 32 == 0 and (name == "pool_s2d" or n % 2 == 0) else None
+    elif name == "conv3x3_s2d_chain3":
+        n, c4a, c4b, c4m, c4o, pool = problem
+        c4s = (c4a, c4b) if c4b else (c4a,)
+        if not takes(c4o, *c4s, c4m) or (pool == "s2d" and n % 2):
+            return None
+        if not bf16:
+            return "chain"
+        return "wgmma" if chain_takes(n, c4s, c4m, c4o, pool) else None
+    else:
+        raise ValueError(f"no route rule for {name!r}")
+    return ("wgmma" if bf16 else "engine") if ok else None
 
 
 def conv5_kernel_name(c4: int, co4: int = 0, n: int = 0, dtype=torch.float32) -> str:

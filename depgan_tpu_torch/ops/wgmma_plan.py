@@ -509,6 +509,16 @@ def chain_plan(n: int, c4s: tuple[int, ...], c4m: int, c4o: int, pool: str = "")
     return best
 
 
+def chain_takes(n: int, c4s: tuple[int, ...], c4m: int, c4o: int, pool: str = "") -> bool:
+    """Whether K10's wgmma chain takes these widths (``chain_plan`` raises
+    for the others)."""
+    try:
+        chain_plan(n, c4s, c4m, c4o, pool)
+    except ValueError:
+        return False
+    return True
+
+
 def chain_ints(p: ChainPlan) -> list[int]:
     """The plan in the layout of the library's ``depgan_chain_plan``."""
     return [ROUTES.index(p.route), p.bn, p.mt, p.tile, p.pitch, *p.prow, *p.passes, p.rpx,
@@ -668,6 +678,16 @@ def deconv_plan(m: int, c4: int, o4: int) -> DeconvPlan:
                                   b_bytes, bufs, smem, (HALF, 2, 1, m, 1))
     raise ValueError(f"K4's wgmma deconv does not fit: m {m}, 4C {c4}, 4O {o4} ({b_bytes} bytes "
                      f"of B)")
+
+
+def deconv_takes(m: int, c4: int, o4: int) -> bool:
+    """Whether K4's wgmma deconv takes these widths (``deconv_plan`` raises
+    for the others)."""
+    try:
+        deconv_plan(m, c4, o4)
+    except ValueError:
+        return False
+    return True
 
 
 def deconv_ints(p: DeconvPlan) -> list[int]:

@@ -70,7 +70,9 @@ class GanTrainer:
         self.use_fused = model_cfg.use_pallas and not self.batch_bn
         dtype = getattr(torch, model_cfg.compute_dtype)
         if self.use_fused:
-            self.fused = FusedGenerator(model_cfg, dtype)
+            # The generator's width gate runs here: a site no kernel takes
+            # warns (on a CUDA device) and runs its plain torch version.
+            self.fused = FusedGenerator(model_cfg, dtype, self.device)
             self.fused_critic = FusedCritic(model_cfg, dtype)
         else:
             # Parameters come from the state through functional_call.

@@ -145,9 +145,45 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="at most 256"):
         K.conv3x3_s2d_fused_pool(x, torch.zeros(2, 2, 128, 512, device=cuda),
                                  torch.zeros(512, device=cuda))
-    with pytest.raises(ValueError, match="in bfloat16"):
-        K.conv3x3_s2d_fused_pool(x.bfloat16(), torch.zeros(2, 2, 128, 96, device=cuda).bfloat16(),
-                                 torch.zeros(96, device=cuda))
+    # bf16 4Co 96 is outside the wgmma pool's widths: the wrapper launches
+    # the engine's K2, counted as K2, and equals it bit for bit.
+    before = K.launches()["conv3x3_s2d_fused_pool"]
+    xb, wb = x.bfloat16(), (0.05 * torch.randn(2, 2, 128, 96, device=cuda)).bfloat16()
+    b96 = torch.randn(96, device=cuda)
+    assert K.kernel_route("conv3x3_s2d_fused_pool", (16, 128, 96, "s2d"), xb.dtype) == "engine"
+    out, pooled = K.conv3x3_s2d_fused_pool(xb, wb, b96)
+    ref, ref_pooled = probes.conv3x3_engine(xb, wb, b96, pool="s2d")
+    assert torch.equal(out, ref) and torch.equal(pooled, ref_pooled)
+    assert K.launches()["conv3x3_s2d_fused_pool"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first_fm", [24, 48, 64])
+def test_fast_generator_at_other_widths(cuda, first_fm):
+    """bf16 serving at widths the wgmma plans refuse somewhere (K2 at 4Co 96,
+    192, 384, 512; K4 at 4C 512 at image 256): every site runs a kernel (the
+    engine, or K1 and the pool kernel where the fused pool takes no 4Co above
+    256), the launches are those of the routes, and the output is within the
+    serving gate of the plain float32 generator."""
+    from depgan_tpu_torch.ops.fast_gen import taken_launches
+
+    cfg = ModelConfig(image_size=64, first_fm=first_fm)
+    rng = np.random.default_rng(first_fm)
+    variables = init_generator(cfg, seed=first_fm)
+    x = torch.from_numpy(rng.uniform(size=(2, 64, 64, 1)).astype(np.float32)).to(cuda)
+    z = torch.from_numpy(rng.normal(size=(2, 32, 1)).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        ref = load_flax_variables(GenUNet2D(cfg, device=cuda), variables).eval()(x, z)
+    fast = FastGenerator(cfg, variables, torch.bfloat16, cuda)
+    K.reset_launch_counts()
+    out = fast(x, z)
+    torch.cuda.synchronize()
+    assert "plain" not in fast.taken.values(), fast.taken
+    assert {k: v for k, v in K.launches().items() if v} == taken_launches(cfg, fast.taken)
+    diff = float((out - ref).abs().max())
+    print(f"first_fm {first_fm}: max abs {diff:.3e} from the plain float32 generator, "
+          f"routes {fast.taken}")
+    assert diff < 0.05
 
 
 @pytest.mark.gpu
@@ -1099,18 +1135,20 @@ def test_head_wgmma_equals_engine(cuda, n, co4, h4):
 
 @pytest.mark.gpu
 def test_deconv_and_head_wgmma_refusals(cuda):
-    """What the bf16 K4 and K9 kernels do not take raises and launches
-    nothing, the wrappers' checks and the library's own alike: no shape
-    goes to the engine in their place."""
+    """What the bf16 K4 kernel does not take goes to the engine, decided
+    from the widths (``kernel_route``), counted as K4 and equal to it bit
+    for bit; what K9 does not take raises and launches nothing; the
+    library's own entry points refuse both."""
     before = K.launches()
-    x = K.pad_s2d(torch.randn(1, 4, 4, 1024, device=cuda)).bfloat16()
-    w2 = torch.zeros(256, 1024, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="wgmma deconv"):  # B does not fit beside its tiles
-        K._deconv_impl(x, w2, torch.zeros(1024, device=cuda))
-    x = K.pad_s2d(torch.randn(1, 257, 257, 32, device=cuda)).bfloat16()
-    with pytest.raises(ValueError, match="wgmma deconv"):  # m past a box's 256
-        K._deconv_impl(x, torch.zeros(8, 64, device=cuda).bfloat16(),
-                       torch.zeros(64, device=cuda))
+    for m, c4, o4 in ((4, 1024, 1024),    # B does not fit beside its tiles
+                      (257, 32, 64)):     # m past a box's 256
+        x = K.pad_s2d(torch.randn(1, m, m, c4, device=cuda)).bfloat16()
+        w2 = (0.1 * torch.randn(c4 // 4, o4, device=cuda)).bfloat16()
+        b4 = torch.randn(o4, device=cuda)
+        assert K.kernel_route("deconv_s2d", (m, c4, o4), x.dtype) == "engine"
+        assert torch.equal(K._deconv_impl(x, w2, b4), probes.deconv_engine(x, w2, b4))
+    assert K.launches()["deconv_s2d"] == before["deconv_s2d"] + 2
+    before = K.launches()
     x = K.pad_s2d(torch.randn(2, 8, 8, 64, device=cuda)).bfloat16()
     with pytest.raises(ValueError, match="Ho4 <= 16"):
         K.conv3x3_s2d_fused_head(x, torch.zeros(2, 2, 64, 64, device=cuda).bfloat16(),

@@ -22,6 +22,7 @@ from depgan_tpu import config as jax_config
 from depgan_tpu.train import wgan_gp as jax_wgan_gp
 from depgan_tpu.train.gan_trainer import GanTrainer as JaxGanTrainer
 from depgan_tpu.train.state import Counters as JaxCounters
+from depgan_tpu_torch import config
 from depgan_tpu_torch.config import DataConfig, GanTrainConfig, ModelConfig
 from depgan_tpu_torch.io.flax_bridge import flatten_tree, gan_train_state_from_trees
 from depgan_tpu_torch.train import wgan_gp
@@ -32,19 +33,22 @@ from test_torch_models import _map
 D, BATCH, K_NOISE, N_VALID = 2, 2, 2, 1
 
 
-@pytest.mark.parametrize("name", ["DataConfig", "GanTrainConfig"])
+@pytest.mark.parametrize("name", ["DataConfig", "GanTrainConfig", "EvalConfig"])
 def test_train_configs_match_jax(name):
     """The port's configs are subsets of the JAX package's: same names,
-    types and defaults, and the same WMH thresholds."""
-    ref, ours = getattr(jax_config, name), globals()[name]
+    types and defaults, and the same WMH thresholds; DataConfig and
+    EvalConfig are the JAX ones in full."""
+    ref, ours = getattr(jax_config, name), getattr(config, name)
     ref_fields = {f.name: f for f in dataclasses.fields(ref)}
     for field in dataclasses.fields(ours):
         assert field.name in ref_fields, field.name
         assert field.type == ref_fields[field.name].type, field.name
         assert field.default == ref_fields[field.name].default, field.name
-    for pm in (True, False):
-        assert (DataConfig(use_probability_map=pm).wmh_threshold
-                == jax_config.DataConfig(use_probability_map=pm).wmh_threshold)
+    if name != "GanTrainConfig":
+        assert [f.name for f in dataclasses.fields(ours)] == list(ref_fields)
+        for pm in (True, False):
+            assert (ours(use_probability_map=pm).wmh_threshold
+                    == ref(use_probability_map=pm).wmh_threshold)
 
 
 def test_warmup_schedule_and_counters_match_jax():
