@@ -115,6 +115,32 @@
    against its plain version, the library call and its bound; bf16 P1 and
    P2 in turns with their routes before the mainloop (old, new, new, old:
    the engine's phases, ``window_conv``).
+11. The training path, as ``train-gan --use-pallas`` and ``train-uresnet
+   --use-pallas`` run it: a synthetic training fold (4 subjects x 90
+   slices at 256, every training modality, as .nii.gz) through
+   ``drivers.run_gan_training`` at full width in float32 (the engine's
+   kernels), batch 16, D 5, k 10, over 2 epochs with a cut schedule
+   (FIT_CFG, each cut printed): a warm-up superstep, epoch tails, 5
+   validations, deferred flushes, checkpoints. Held: each superstep's D
+   and n_valid; the exact kernel launches (``fit_launches``: each
+   superstep's by its n_valid, 7 K8 a validation forward); every logged
+   value finite, and the event file parsed back record by record with
+   its CRCs, holding each (tag, step) given to the logger; the
+   checkpoints (3 kept) and the final counters; resume (the second
+   checkpoint restored into a fresh state and the next superstep rerun
+   with the same draws, bit-identical, or within SUPERSTEP_LIMITS:
+   printed which), beside two runs of that superstep with cuDNN's default
+   algorithms; train -> test (the checkpoint directory through
+   ``generator_loader`` and ``EnsemblePredictor(fast=True)``, within 0.05
+   of the plain float32 generator, 8/2/2/1 launches a forward). The same
+   fit in bf16 (times and launches); ``run_uresnet_training`` for 2 epochs
+   (the loss histories, a checkpoint an epoch, 7 K8 a step and a
+   validation chunk); ``bench --what gen-inference`` and
+   ``uresnet-inference`` (8/2/2/1 launches a forward). The drivers' .h5
+   export is replaced by a recorder (no h5py on the card's machine); ms
+   per superstep (warm-up, steady, tails), validation, flush and
+   checkpoint save (with MB) are printed beside the card's name and power
+   limit.
 
 Every phase prints its seconds. ``CONV5_PACKED`` is restored in a
 ``finally`` after each phase that sets it. Prints one JSON line with the
@@ -128,6 +154,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -377,6 +404,23 @@ TESTING_SUBJECTS, TESTING_SLICES = 2, 42
 TESTING_LIMITS = {"dice": 5e-3, "volume": 5e-3}
 # Phase 3d: first_fm widths at which the wgmma plans refuse some site.
 WIDTH_CASES = (48, 64)
+# Phase 11, the training path: a synthetic training fold of 4 subjects x 90
+# slices (val_fraction 0.02: 8 validation slices, 352 training, 22 batches
+# of 16 an epoch) and train-gan --use-pallas's schedule, cut where the
+# comment says (the default beside).
+TRAIN_SUBJECTS, TRAIN_SLICES = 4, 90
+FIT_CFG = dict(batch_size=16, d_iters=5, k_noise=10,
+               n_epochs=2,             # 200
+               warmup_d_iters=10,      # 100
+               warmup_until=1,         # 25
+               validate_every=2,       # 10
+               image_log_every=2,      # 500
+               checkpoint_every=3,     # 100
+               metric_flush_every=3)   # 25
+FIT_DEFAULTS = dict(n_epochs=200, warmup_d_iters=100, warmup_until=25, validate_every=10,
+                    image_log_every=500, checkpoint_every=100, metric_flush_every=25)
+URESNET_EPOCHS = 2  # 200
+RESUME_STEP = 6  # the second checkpoint; the fit's 7th superstep follows it
 
 
 def check(cond: bool, what: str) -> None:
@@ -1557,9 +1601,12 @@ def check_uresnet_fit() -> dict[str, int]:
     return launches
 
 
-def expected_superstep_launches(d: int, k: int, packed: bool = False) -> dict[str, int]:
+def expected_superstep_launches(d: int, k: int, packed: bool = False,
+                                n_valid: int | None = None) -> dict[str, int]:
     """Kernel launches of one fused superstep with D critic steps per
-    critic and k probe noises, with ``CONV5_PACKED`` when ``packed``.
+    critic and k probe noises, with ``CONV5_PACKED`` when ``packed``. An
+    epoch-tail superstep runs ``n_valid`` of its D critic steps (the rest
+    are skipped), so it launches what a superstep of D = ``n_valid`` does.
 
     Generator forwards: 2D (critic loops) + k (probe) + 1 (its step), each
     K1 x10 (6 relu, 4 film), K3 x2, K4 x1, K5 x1, K6 x1; its backward adds
@@ -1585,6 +1632,7 @@ def expected_superstep_launches(d: int, k: int, packed: bool = False) -> dict[st
     forwards, 2 x (2 + 2) input gradients: dX of L0a and L0b packed); a
     probe score 3 and 1.
     """
+    d = d if n_valid is None else n_valid
     gen_fwd, steps, probe = 2 * d + k + 1, 2 * d, 2 * k
     counts = dict.fromkeys(KERNELS, 0)  # no other kernel, K2, K8 and K9-K12 included
     counts.update({"conv3x3_s2d_fused": 10 * gen_fwd, "conv3x3_s2d_fused[none]": 17,
@@ -2084,6 +2132,454 @@ def check_widths(seed: int) -> dict[str, int]:
     return total
 
 
+def write_training_fold(root: Path, n_subjects: int, size: int, n_slices: int, seed: int) -> Path:
+    """A synthetic one-fold training set under ``root``, as the JAX
+    package's ``tests/test_drivers.py:16-44`` writes it: every modality of
+    ``GAN_TRAIN_MODALITIES`` and ``URESNET_TRAIN_MODALITIES`` of each
+    subject as .nii.gz (the sl_cleaned files listed but missing) and the
+    manifests. Returns the manifest directory."""
+    from depgan_tpu_torch.data import manifest, nifti
+
+    rng = np.random.default_rng(seed)
+    mdir = root / "manifests"
+    mdir.mkdir()
+    modalities = tuple(dict.fromkeys(manifest.GAN_TRAIN_MODALITIES
+                                     + manifest.URESNET_TRAIN_MODALITIES))
+    lists = {m: [] for m in modalities}
+    shape = (size, size, n_slices)
+    for s in range(n_subjects):
+        sd = root / f"subj{s}"
+        sd.mkdir()
+        vols = {"flair_1tp": rng.uniform(0, 100, shape), "wmh_prob_1tp": rng.uniform(0, 1, shape),
+                "wmh_prob_2tp": rng.uniform(0, 1, shape), "icv_1tp": np.ones(shape),
+                "icv_2tp": np.ones(shape),
+                "wmh_subtracted_coded_2tp_1tp": rng.integers(0, 4, shape)}
+        for m in modalities:
+            path = sd / f"{m}.nii.gz"
+            if m in vols:
+                nifti.save(vols[m].astype(np.float32), np.eye(4), path)
+            lists[m].append(str(path))
+    for m, paths in lists.items():
+        (mdir / f"{m}_fold1.txt").write_text("\n".join(paths) + "\n")
+    return mdir
+
+
+def nonzero(counts: dict[str, int]) -> dict[str, int]:
+    return {k: v for k, v in counts.items() if v}
+
+
+def fit_schedule(n_batches: int, cfg) -> list[tuple[int, int]]:
+    """(D, n_valid) of each superstep of ``fit_fold`` from generator
+    iteration 0: the warm-up schedule (reference :792-797) over
+    ``n_epochs`` epochs of ``n_batches`` batches, epoch tails short."""
+    out, gi = [], 0
+    for _ in range(cfg.n_epochs):
+        i = 0
+        while i < n_batches:
+            warm = gi < cfg.warmup_until or gi % cfg.warmup_every == 0
+            d = cfg.warmup_d_iters if warm else cfg.d_iters
+            out.append((d, min(d, n_batches - i)))
+            i += out[-1][1]
+            gi += 1
+    return out
+
+
+def fit_launches(schedule: list[tuple[int, int]], k: int, validations: int) -> dict[str, int]:
+    """Kernel launches of a fit: each superstep's, and 7 K8 a validation
+    forward (the plain generator's FiLM sites; the plain critic runs none)."""
+    total = dict.fromkeys(KERNELS, 0)
+    for d, n_valid in schedule:
+        for name, count in expected_superstep_launches(d, k, n_valid=n_valid).items():
+            total[name] += count
+    total["film_residual"] += 7 * validations
+    return total
+
+
+class FitProbe:
+    """Records a training run from outside the port, for phase 11: each
+    superstep's D, n_valid and ms host to host (the card synchronized at
+    both ends), each validation's, flush's and checkpoint save's ms (and
+    the MB a save wrote), the (tag, step) of everything given to
+    ``Logger``, and, for superstep ``keep`` of the run, its inputs, its
+    metrics and the state it left. Patches the classes while active."""
+
+    def __init__(self, keep: int | None = None):
+        self.keep = keep
+        self.supersteps, self.validations, self.flushes, self.saves = [], [], [], []
+        self.logged, self.kept = [], {}
+
+    def __enter__(self):
+        from depgan_tpu_torch.io import checkpoint
+        from depgan_tpu_torch.io.flax_bridge import gan_trees_from_state
+        from depgan_tpu_torch.train import gan_trainer
+        from depgan_tpu_torch.utils import logging
+
+        probe = self
+        self.patched = {(cls, name): getattr(cls, name) for cls, name in (
+            (gan_trainer.GanTrainer, "superstep"), (gan_trainer.GanTrainer, "val_step"),
+            (gan_trainer.MetricBuffer, "flush"), (checkpoint.CheckpointManager, "save"),
+            (logging.Logger, "log_scalar"), (logging.Logger, "log_images"))}
+        orig = {name: fn for (_, name), fn in self.patched.items()}
+
+        def timed(fn, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def superstep(trainer, state, x_all, y_all, idx_block, n_valid, generator=None,
+                      draws=None):
+            i = len(probe.supersteps)
+            if i == probe.keep:
+                probe.kept = {"x_all": x_all, "y_all": y_all, "idx": np.array(idx_block),
+                              "n_valid": n_valid,
+                              "draws": {k: v.clone() for k, v in draws.items()}}
+            out, ms = timed(orig["superstep"], trainer, state, x_all, y_all, idx_block, n_valid,
+                            generator, draws)
+            probe.supersteps.append((idx_block.shape[0], n_valid, ms))
+            if i == probe.keep:
+                probe.kept["after"] = gan_trees_from_state(out[0])
+                probe.kept["metrics"] = out[1]
+            return out
+
+        def val_step(trainer, *args):
+            out, ms = timed(orig["val_step"], trainer, *args)
+            probe.validations.append(ms)
+            return out
+
+        def flush(buffer):
+            if not buffer.pending:
+                return orig["flush"](buffer)
+            out, ms = timed(orig["flush"], buffer)
+            probe.flushes.append(ms)
+            return out
+
+        def save(manager, step, state, counters=None, extra=None):
+            _, ms = timed(orig["save"], manager, step, state, counters, extra)
+            mb = sum(f.stat().st_size for f in (manager.directory / str(step)).iterdir()) / 1e6
+            probe.saves.append((step, ms, mb))
+
+        def log_scalar(logger, tag, value, step):
+            probe.logged.append((tag, step))
+            orig["log_scalar"](logger, tag, value, step)
+
+        def log_images(logger, tag, images, step, denorm=(0, 255)):
+            probe.logged.extend((f"{tag}/{i}", step) for i in range(len(images)))
+            orig["log_images"](logger, tag, images, step, denorm)
+
+        for (cls, name), fn in ((k, v) for k, v in zip(self.patched, (
+                superstep, val_step, flush, save, log_scalar, log_images))):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in self.patched.items():
+            setattr(cls, name, fn)
+        return False
+
+    def last_step(self) -> int | None:
+        return self.saves[-1][0] if self.saves else None
+
+    def summary(self) -> str:
+        warm = [ms for d, _, ms in self.supersteps if d != FIT_CFG["d_iters"]]
+        steady = [ms for d, nv, ms in self.supersteps if d == FIT_CFG["d_iters"] == nv]
+        tails = [ms for d, nv, ms in self.supersteps if nv < d]
+        return (f"ms per superstep host to host: warm-up (D {FIT_CFG['warmup_d_iters']}) "
+                f"{', '.join(f'{v:.1f}' for v in warm)}; steady (D {FIT_CFG['d_iters']}) "
+                f"{', '.join(f'{v:.1f}' for v in steady)} (least {min(steady):.1f}, median "
+                f"{float(np.median(steady)):.1f}); epoch tails "
+                f"{', '.join(f'{v:.1f}' for v in tails)}; ms per validation "
+                f"{', '.join(f'{v:.1f}' for v in self.validations)}; per flush "
+                f"{', '.join(f'{v:.1f}' for v in self.flushes)}; per checkpoint save "
+                + ", ".join(f"{v:.1f} ({mb:.1f} MB)" for _, v, mb in self.saves))
+
+
+def resume_readings(start: dict, got: dict, want: dict, got_m: dict, want_m: dict) -> dict:
+    """Phase 6's readings of the resumed superstep against the
+    uninterrupted one: each logged loss relative to its size (errG_CY2 and
+    errG_DEM to the critic scores'), each network's updates in relative
+    L2, its largest parameter difference in units of lr, and Adam's first
+    moment (the last gradient, b1 = 0) in relative L2."""
+    from depgan_tpu_torch.config import GanTrainConfig
+    from depgan_tpu_torch.io.flax_bridge import flatten_tree
+    from depgan_tpu_torch.train.gan_trainer import CRIT_KEYS, GEN_KEYS
+
+    def cat(tree):
+        return np.concatenate([np.ravel(v) for v in flatten_tree(tree).values()]).astype(np.float64)
+
+    score = max(float(want_m[k].abs().nan_to_num().max()) for k in CRIT_KEYS)
+    scores = ("errG_CY2", "errG_DEM")
+    loss = {k: abs(float(got_m["gen"][k]) - float(want_m["gen"][k]))
+            / max(abs(float(want_m["gen"][k])), score if k in scores else 1e-30) for k in GEN_KEYS}
+    r = {"losses": max(v for k, v in loss.items() if k not in scores),
+         "updated scores": max(loss[k] for k in scores), "updates": 0.0, "gradient": 0.0,
+         "max abs / lr": 0.0}
+    lr = {"g": GanTrainConfig().lr_g, "dy2": GanTrainConfig().lr_d, "ddem": GanTrainConfig().lr_d}
+    for part in ("g", "dy2", "ddem"):
+        a, b, s0 = (cat(t[f"{part}_params"]) for t in (got, want, start))
+        r["updates"] = max(r["updates"], float(np.linalg.norm(a - b) / np.linalg.norm(b - s0)))
+        r["max abs / lr"] = max(r["max abs / lr"], float(np.abs(a - b).max()) / lr[part])
+        ma, mb = cat(got[f"{part}_opt"]["mu"]), cat(want[f"{part}_opt"]["mu"])
+        r["gradient"] = max(r["gradient"], float(np.linalg.norm(ma - mb) / np.linalg.norm(mb)))
+    return r
+
+
+def check_resume(trainer, manager, kept: dict, seed: int, dtype: str, smi: str) -> None:
+    """Phase 11's resume: checkpoint RESUME_STEP restored into a fresh
+    state and the next superstep rerun with the uninterrupted run's inputs
+    and draws (``FitProbe``'s ``kept``); the largest difference from the
+    uninterrupted run's state, which must be 0 (the path proved
+    deterministic) or else within SUPERSTEP_LIMITS. Then that superstep
+    from the checkpoint with cuDNN's default algorithm choice (torch's
+    defaults: not deterministic, not autotuned) beside the deterministic
+    ones the superstep runs, in turns (deterministic, default, default,
+    deterministic): how far the two default runs differ, the ms of each,
+    and a profile of one deterministic superstep."""
+    from depgan_tpu_torch.io.flax_bridge import flatten_tree, gan_trees_from_state
+
+    def restored():
+        return manager.restore(trainer.init_state(seed + 1), step=RESUME_STEP)
+
+    state, counters, _ = restored()
+    check(counters.gen_iterations == RESUME_STEP, f"restored counters {counters}")
+    start = gan_trees_from_state(state)
+    args = (kept["x_all"], kept["y_all"], kept["idx"], kept["n_valid"])
+    state, metrics = trainer.superstep(state, *args, draws=kept["draws"])
+    got, want = gan_trees_from_state(state), kept["after"]
+    flat_got, flat_want = flatten_tree(got), flatten_tree(want)
+    diff = max(float(np.abs(np.asarray(flat_got[k], np.float64)
+                            - np.asarray(flat_want[k], np.float64)).max()) for k in flat_want)
+    what = (f"training resume {dtype}: step {RESUME_STEP} restored into a fresh state, the next "
+            f"superstep rerun with the same draws: largest difference {diff:.3e} from the "
+            f"uninterrupted run's state (parameters, statistics, Adam's counts and moments)")
+    if diff == 0:
+        print(f"{what}: bit-identical, the path proved deterministic")
+    else:
+        r = resume_readings(start, got, want, metrics, kept["metrics"])
+        print(f"{what}; not bit-identical, so held to SUPERSTEP_LIMITS: " + ", ".join(
+            f"{k} {v:.3e} (limit {SUPERSTEP_LIMITS[k]:g})" for k, v in r.items()))
+        for k, v in r.items():
+            check(v <= SUPERSTEP_LIMITS[k], f"resume {k} {v:.3e} beyond {SUPERSTEP_LIMITS[k]:g}")
+
+    cudnn = torch.backends.cudnn
+    reruns, ms = [], {"deterministic": [], "default": []}
+    for mode in ("deterministic", "default", "default", "deterministic"):
+        state = restored()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "deterministic":
+            trainer.superstep(state, *args, draws=kept["draws"])
+        else:
+            with cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                             allow_tf32=cudnn.allow_tf32):
+                trainer._superstep(state, *args, None, kept["draws"])
+        torch.cuda.synchronize()
+        ms[mode].append((time.perf_counter() - t0) * 1e3)
+        if mode == "default":
+            reruns.append(flatten_tree(gan_trees_from_state(state)))
+    lr = trainer.cfg.lr_d
+    spread = {part: max(float(np.abs(np.asarray(reruns[0][k], np.float64)
+                                     - np.asarray(reruns[1][k], np.float64)).max())
+                        for k in reruns[0] if k.startswith(part + "."))
+              for part in ("g_params", "dy2_params", "ddem_params")}
+    print(f"training resume {dtype} on {smi}: with cuDNN's default algorithm choice two runs of "
+          f"that superstep from the checkpoint differ by, in parameters: "
+          + ", ".join(f"{k} {v:.3e} ({v / lr:.2f} lr)" for k, v in spread.items())
+          + f"; ms deterministic {', '.join(f'{v:.1f}' for v in ms['deterministic'])}, default "
+            f"{', '.join(f'{v:.1f}' for v in ms['default'])} (in turns)")
+    state = restored()[0]
+    profile_once(lambda: trainer.superstep(state, *args, draws=kept["draws"]),
+                 f"one {dtype} superstep of the fit (D {kept['idx'].shape[0]})",
+                 min(ms["deterministic"]))
+
+
+def check_training_path(seed: int, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 11: the training path end to end, as ``train-gan --use-pallas``
+    and ``train-uresnet --use-pallas`` run it (``drivers.run_*_training``),
+    at full width over a synthetic training fold written as .nii.gz, with
+    FIT_CFG's cut schedule. Checks, for the float32 GAN fit: each
+    superstep's D and n_valid against the schedule; the exact kernel
+    launches (``fit_launches``); every logged value finite and the event
+    file, parsed back record by record with its CRCs, holding each (tag,
+    step) given to the logger; the checkpoints and final counters; resume
+    (the second checkpoint restored into a fresh state, the next superstep
+    rerun with the uninterrupted run's draws: bit-identical, or within
+    SUPERSTEP_LIMITS); and train -> test (the checkpoint directory served
+    through ``generator_loader`` and ``EnsemblePredictor(fast=True)``,
+    within 0.05 of the plain float32 generator, 8/2/2/1 launches a
+    forward). Then the same fit in bf16 (times and launches), the UResNet
+    fit (loss histories, a checkpoint an epoch, 7 K8 a step and a
+    validation chunk), and the two inference benchmarks. The card's
+    machine has no h5py: the drivers' .h5 export is replaced by a recorder
+    of the files it would have written. Returns the launches of each run."""
+    import tempfile
+
+    from depgan_tpu_torch import benchmarks, drivers
+    from depgan_tpu_torch.config import (DataConfig, GanTrainConfig, ModelConfig,
+                                         UResNetTrainConfig)
+    from depgan_tpu_torch.eval.predict import EnsemblePredictor
+    from depgan_tpu_torch.io.checkpoint import CheckpointManager
+    from depgan_tpu_torch.io.flax_bridge import flatten_tree, numpy_tree
+    from depgan_tpu_torch.ops import conv_s2d as K
+    from depgan_tpu_torch.train.gan_trainer import GanTrainer
+    from depgan_tpu_torch.utils import tb_writer
+
+    train_cfg = GanTrainConfig(**FIT_CFG)
+    print("training: the cuts of train-gan's schedule: " + ", ".join(
+        f"{k} {FIT_CFG[k]} (default {v})" for k, v in FIT_DEFAULTS.items())
+          + f"; train-uresnet n_epochs {URESNET_EPOCHS} (default 200); a fold of "
+            f"{TRAIN_SUBJECTS * TRAIN_SLICES} slices (a real fold holds ~4,800)")
+    print("training: the card's machine has no h5py, so for this phase only the drivers' .h5 "
+          "export is replaced by a recorder of the (file, gen_iteration or epoch) pairs it "
+          "would have written; the CPU tests cover the real export")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="depgan_train_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        mdir = write_training_fold(root, TRAIN_SUBJECTS, IMAGE, TRAIN_SLICES, seed)
+        print(f"training: wrote {TRAIN_SUBJECTS} subjects x 6 modalities of "
+              f"{IMAGE}x{IMAGE}x{TRAIN_SLICES} .nii.gz in {time.perf_counter() - t0:.2f} s")
+        data_cfg = DataConfig(manifest_dir=str(mdir), image_size=IMAGE)
+        n_all = TRAIN_SUBJECTS * TRAIN_SLICES
+        n_val = math.ceil(data_cfg.val_fraction * n_all)  # train_val_split's
+        n_batches = (n_all - n_val) // train_cfg.batch_size
+        schedule = fit_schedule(n_batches, train_cfg)
+        validations = sum(gi % train_cfg.validate_every == 0 for gi in range(len(schedule)))
+        want_launches = fit_launches(schedule, train_cfg.k_noise, validations)
+        steps = [gi + 1 for gi in range(len(schedule))
+                 if (gi + 1) % train_cfg.checkpoint_every == 0]
+
+        for dtype in ("float32", "bfloat16"):
+            run = f"smoke_{dtype}"
+            cfg = ModelConfig(image_size=IMAGE, first_fm=32, use_pallas=True,
+                              compute_dtype=dtype)
+            models, logs = root / "models", root / "logdir"
+            written = []
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with FitProbe(keep=RESUME_STEP) as probe:
+                states = drivers.run_gan_training(
+                    cfg, train_cfg, data_cfg, run_name=run, folds=(1,), log_dir=str(logs),
+                    model_dir=str(models), device=DEVICE,
+                    export_h5=lambda s, p: written.append((p.name, probe.last_step())))
+            run_ms = (time.perf_counter() - t0) * 1e3
+            launches = K.launches()
+            runs[f"training_fit_{dtype}"] = launches
+            got_schedule = [(d, nv) for d, nv, _ in probe.supersteps]
+            check(got_schedule == schedule, f"{dtype} fit: supersteps {got_schedule}, "
+                                            f"the schedule {schedule}")
+            check(launches == want_launches, f"{dtype} fit: launches {launches}, expected "
+                                             f"{want_launches}")
+            print(f"training {dtype} on {smi}: {len(schedule)} supersteps (D, n_valid) "
+                  f"{schedule}, {validations} validations, {len(probe.flushes)} flushes, "
+                  f"launches {launches}; the run {run_ms:.0f} ms host to host (data load "
+                  f"included); {probe.summary()}")
+            manager = CheckpointManager(models / f"{run}_fold1")
+            check_resume(GanTrainer(cfg, train_cfg, data_cfg, DEVICE), manager, probe.kept,
+                         seed, dtype, smi)
+            if dtype != "float32":
+                continue
+
+            # The logged values, the event file and the checkpoints.
+            (events_file,) = (logs / f"{run}_fold1").glob("events.*")
+            events = tb_writer.read_events(events_file)  # every record's CRCs checked
+            values = [(v[0], e["step"]) for e in events for v in e["values"]]
+            check(values == probe.logged, f"the event file holds {len(values)} values, the "
+                                          f"logger was given {len(probe.logged)}")
+            scalars = [v[2] for e in events for v in e["values"] if v[1] == "scalar"]
+            check(bool(np.isfinite(scalars).all()), "a logged value is not finite")
+            check(sum(e["graph"] is not None for e in events) == 1, "no graph record")
+            check(manager.all_steps() == steps[-manager.max_to_keep:],
+                  f"checkpoint steps {manager.all_steps()}, expected {steps}")
+            check([s for s, _, _ in probe.saves] == steps + [len(schedule)],
+                  f"saves {[s for s, _, _ in probe.saves]}")
+            check(written == [(f"netG_{run}_fold1.h5", s) for s in steps + [len(schedule)]],
+                  f"the .h5 export wrote {written}")
+            _, counters, _ = manager.restore(states[1])
+            consumed = sum(nv for _, nv in schedule)
+            check(dataclasses.astuple(counters) == (len(schedule), consumed, consumed),
+                  f"final counters {counters}, expected {len(schedule)} generator and "
+                  f"{consumed} critic iterations")
+            print(f"training: the event file parsed back, {len(events)} records with their "
+                  f"CRCs, {len(values)} values ({len(scalars)} scalars, all finite) as "
+                  f"logged; checkpoints {manager.all_steps()} kept of {steps} and the "
+                  f"final one; .h5 recorded {written}; final counters {counters}")
+
+            # Train -> test: the checkpoint directory served.
+            serve_cfg = ModelConfig(image_size=IMAGE, first_fm=32)
+            variables = drivers.generator_loader(serve_cfg, str(models / f"{run}_fold{{fold}}"))(1)
+            final = {"params": numpy_tree(states[1].g_params),
+                     "batch_stats": numpy_tree(states[1].g_stats)}
+            check(all(np.array_equal(flatten_tree(variables)[k], v)
+                      for k, v in flatten_tree(final).items()),
+                  "the checkpoint directory does not serve the trained generator")
+            rng = np.random.default_rng(seed)
+            x = rng.uniform(size=(BATCH_SERVE, IMAGE, IMAGE, 1)).astype(np.float32)
+            mask = np.ones(x.shape[:3], np.float32)
+            fast = EnsemblePredictor(serve_cfg, variables, N_REPEAT, seed=seed, fast=True,
+                                     device=DEVICE)
+            K.reset_launch_counts()
+            out = fast.predict(x, mask)
+            launches = K.launches()
+            runs["train_to_test"] = launches
+            ref = EnsemblePredictor(serve_cfg, variables, N_REPEAT, seed=seed, fast=False,
+                                    device=DEVICE).predict(x, mask)
+            want = {k: LAUNCHES_PER_FORWARD.get(k, 0) * N_REPEAT for k in KERNELS}
+            check(launches == want, f"train -> test launches {launches}, expected {want}")
+            diff = float(np.abs(out - ref).max())
+            check(out.shape == ref.shape and bool(np.isfinite(out).all()) and diff < 0.05,
+                  f"train -> test: fast vs plain float32 max abs {diff:.4f}")
+            print(f"training -> testing: the checkpoint directory through generator_loader, "
+                  f"one {BATCH_SERVE}-slice batch x {N_REPEAT} repeats: fast vs plain float32 "
+                  f"max abs {diff:.4e}, DEM mean {float(out.mean()):.4f} std "
+                  f"{float(out.std()):.4f}, launches {nonzero(launches)}")
+
+        # The UResNet fit.
+        ucfg = ModelConfig(image_size=IMAGE, first_fm=32, n_out=4, dropout_mode="uresnet",
+                           use_pallas=True)
+        utrain = UResNetTrainConfig(batch_size=train_cfg.batch_size, n_epochs=URESNET_EPOCHS)
+        written = []
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        drivers.run_uresnet_training(ucfg, utrain, data_cfg, run_name="smoke_uresnet",
+                                     folds=(1,), log_dir=str(root / "logs"),
+                                     model_dir=str(root / "models"), device=DEVICE,
+                                     export_h5=lambda s, p: written.append((p.name, s.epoch)))
+        run_ms = (time.perf_counter() - t0) * 1e3
+        launches = K.launches()
+        runs["uresnet_training"] = launches
+        chunks = -(-n_val // utrain.batch_size)
+        want = {k: 7 * URESNET_EPOCHS * (n_batches + chunks) if k == "film_residual" else 0
+                for k in KERNELS}
+        check(launches == want, f"uresnet fit launches {launches}, expected {want}")
+        for name in ("loss", "val_loss"):
+            lines = (root / "logs" / f"{name}_smoke_uresnet_fold1.txt").read_text().split()
+            check(len(lines) == URESNET_EPOCHS and np.isfinite(np.array(lines, float)).all(),
+                  f"{name} history {lines}")
+        steps = CheckpointManager(root / "models" / "smoke_uresnet_fold1").all_steps()
+        check(steps == list(range(URESNET_EPOCHS)), f"uresnet checkpoints {steps}")
+        check(written == [("trained_smoke_uresnet_fold1.h5", e + 1)
+                          for e in range(URESNET_EPOCHS)], f"uresnet .h5 {written}")
+        print(f"training uresnet on {smi}: {URESNET_EPOCHS} epochs of {n_batches} steps and "
+              f"{chunks} validation chunk, {run_ms:.0f} ms host to host (data load included), "
+              f"histories {(root / 'logs' / 'loss_smoke_uresnet_fold1.txt').read_text().split()}"
+              f", checkpoints {steps}, .h5 recorded {written}, launches {nonzero(launches)}")
+
+    # The inference benchmarks, JAX's workloads.
+    total = dict.fromkeys(KERNELS, 0)
+    for bench in (benchmarks.gen_inference_bench, benchmarks.uresnet_inference_bench):
+        result = bench()
+        want = {k: LAUNCHES_PER_FORWARD.get(k, 0) * result["n_scan"] for k in KERNELS}
+        check(result["launches"] == want, f"{result['metric']} launches {result['launches']}, "
+                                          f"expected {want}")
+        print(f"bench on {smi}: {json.dumps({**result, 'launches': nonzero(result['launches'])})}")
+        for k, v in result["launches"].items():
+            total[k] += v
+    runs["inference_bench"] = total
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2248,6 +2744,10 @@ def main() -> int:
     probes_launches, probe_timing = run_probes(smi)
     phase_done("probes: passed")
 
+    # Phase 11: the training path, NIfTI fold to checkpoints, resume and serving.
+    training_path = check_training_path(seed=7, smi=smi)
+    phase_done("training path: passed")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if name == "film_residual":
@@ -2285,7 +2785,8 @@ def main() -> int:
                 "testing": testing[name], "widths": widths[name],
                 "superstep": superstep[name], "superstep_packed": superstep_packed[name],
                 "uresnet_fit": uresnet_fit[name], "batch_bn_superstep": batch_bn[name],
-                "probes": probes_launches[name]}
+                "probes": probes_launches[name],
+                **{run: counts[name] for run, counts in training_path.items()}}
         extra = {key: timing[key] for key in
                  ("marginal_ms", "old_marginal_ms", "engine_ms", "old_ms")
                  if key in timing}

@@ -8,8 +8,12 @@ random weights and data from ``seed``, timed with CUDA events.
 ``uresnet_step_bench`` times one ``UResNetTrainer.step`` (the training
 forward through K8 at every FiLM site, the cross-entropy, the backward,
 Adam) of the DEP-UResNet at the same widths, batch 16, with
-``dropout_mode='uresnet'``, as ``train-uresnet --use-pallas`` runs it. Both
-need a card and refuse to run without one.
+``dropout_mode='uresnet'``, as ``train-uresnet --use-pallas`` runs it.
+``gen_inference_bench`` and ``uresnet_inference_bench`` are the JAX
+package's (:33-139): the bf16 ``FastGenerator`` (the serving forward, K1-K4
+at 8/2/2/1 launches a forward), ``n_scan`` forwards chained so that none
+can be skipped or overlapped, in 256x256 slices per second. All need a card
+and refuse to run without one.
 """
 
 from __future__ import annotations
@@ -19,9 +23,13 @@ import torch
 
 from .config import DataConfig, GanTrainConfig, ModelConfig, UResNetTrainConfig
 from .data.pipeline import EpochShuffler
+from .models import init_generator
 from .ops import conv_s2d
+from .ops.fast_gen import FastGenerator
 from .train.gan_trainer import GanTrainer
 from .train.uresnet_trainer import UResNetTrainer
+
+BASELINE_SLICES_PER_SEC = 5000.0  # BASELINE.json's north-star target
 
 
 def _cuda_device() -> torch.device:
@@ -125,3 +133,49 @@ def uresnet_step_bench(batch: int = 16, image_size: int = 256, compute_dtype: st
     return {"ms_per_step": min(t["reps_ms"]), "reps_ms": t["reps_ms"],
             "peak_memory_gib": t["peak_memory_gib"], "launches": t["launches"],
             "shapes": t["shapes"], "loss": float(t["result"])}
+
+
+def _inference_bench(cfg: ModelConfig, metric: str, n_scan: int, batch: int, seed: int) -> dict:
+    """``n_scan`` bf16 ``FastGenerator`` forwards of ``batch`` slices, each
+    forward's input ``tanh(carry + 1e-12 * y)`` of the last one's output
+    (JAX's ``lax.scan`` chain), timed between CUDA events: the least of 4
+    runs after a first run, in 256x256 slices per second, with the spread
+    of the 4 and the kernel launches of the last run."""
+    device = _cuda_device()
+    fast = FastGenerator(cfg, init_generator(cfg, seed=seed), torch.bfloat16, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((batch, cfg.image_size, cfg.image_size, 1), generator=gen, device=device)
+    zs = torch.randn((n_scan, batch, cfg.noise_size, 1), generator=gen, device=device)
+
+    def chain():
+        carry, total = x, torch.zeros((), device=device)
+        for z in zs:
+            y = fast(carry, z)
+            carry = torch.tanh(carry + 1e-12 * y[..., :1])
+            total = total + y.sum()
+        return total
+
+    t = _time_reps(chain, 4)
+    slices_per_sec = n_scan * batch / (min(t["reps_ms"]) / 1e3)
+    return {"metric": metric, "value": round(slices_per_sec, 1),
+            "unit": "256x256_slices/sec/chip",
+            "vs_baseline": round(slices_per_sec / BASELINE_SLICES_PER_SEC, 3),
+            "reps_ms": t["reps_ms"],
+            "spread": (max(t["reps_ms"]) - min(t["reps_ms"])) / min(t["reps_ms"]),
+            "n_scan": n_scan, "batch": batch, "launches": t["launches"]}
+
+
+def gen_inference_bench(n_scan: int = 32, batch: int = 512, seed: int = 0) -> dict:
+    """Serving throughput of the DEP-GAN generator (reference hot loop
+    ``DEP-GAN_testing_4fold.py:616-628``) at image 256, first_fm 32, bf16.
+    Batch 512 is two in-flight subjects' 420-slice ensembles."""
+    cfg = ModelConfig(image_size=256, first_fm=32, n_input_channels=1, compute_dtype="bfloat16")
+    return _inference_bench(cfg, "gen_inference_throughput", n_scan, batch, seed)
+
+
+def uresnet_inference_bench(n_scan: int = 32, batch: int = 256, seed: int = 0) -> dict:
+    """Serving throughput of the DEP-UResNet's 4-class softmax generator
+    (``DEP-UResNet_testing_4fold.py:552-564``), as ``gen_inference_bench``."""
+    cfg = ModelConfig(image_size=256, first_fm=32, n_input_channels=1, n_out=4,
+                      dropout_mode="uresnet", compute_dtype="bfloat16")
+    return _inference_bench(cfg, "uresnet_inference_throughput", n_scan, batch, seed)

@@ -1,15 +1,21 @@
 """Configuration of the port.
 
-``depgan_tpu/config.py``'s ``DataConfig`` and ``EvalConfig`` in full, and
-the fields of its ``ModelConfig``, ``GanTrainConfig`` and
-``UResNetTrainConfig`` that the port reads, with the same names, types and
-defaults (tests hold them equal). The port keeps its own copy so that it
-imports nothing of the JAX package.
+``depgan_tpu/config.py``'s ``DataConfig`` and ``EvalConfig`` in full, its
+``GanTrainConfig`` and ``UResNetTrainConfig`` but ``dispatch_chunk``, the
+fields of its ``ModelConfig`` that the port reads, with the same names,
+types and defaults (tests hold them equal), and ``to_dict``,
+``save_config`` and ``load_config``. ``MeshConfig`` is left out: the port
+trains on one device. The port keeps its own copy so that it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
 
 # WMH thresholds: probability maps use 0.5, irregularity maps 0.178
 # (reference: DEP-GAN_PROB_IM_twoCritics_training_4fold.py:26-29).
@@ -80,10 +86,13 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class GanTrainConfig:
-    """Two-critic WGAN-GP training: the fields the superstep reads
-    (reference :34-50, :506-894)."""
+    """Two-critic WGAN-GP training (reference :34-50, :506-894). The JAX
+    package's ``dispatch_chunk`` is left out: a TPU dispatch knob that
+    leaves the trajectory unchanged (``fit_fold`` runs one superstep a
+    loop turn, JAX's ``dispatch_chunk=1``)."""
 
     batch_size: int = 16
+    n_epochs: int = 200  # 'niter', reference :38
     d_iters: int = 5  # critic steps per generator step, reference :36
     warmup_d_iters: int = 100  # reference :792-797
     warmup_until: int = 25  # gen_iterations below which warm-up applies
@@ -102,11 +111,25 @@ class GanTrainConfig:
     # (sigmoid((x - t) / tau)) for the volume and Dice terms.
     threshold_mode: str = "hard"
     soft_threshold_tau: float = 0.02
+    # Reference quirk: the iteration counters are module-global and never
+    # reset between folds (reference :47-49, :506), so folds 2-4 skip warm-up.
+    reset_counters_per_fold: bool = False
     # 'frozen' (Keras learning-phase 0: moving statistics, no dropout; the
     # fused path) or 'batch' (the generator's step uses batch statistics,
     # updates them and applies dropout; the plain modules, with K8 at the
     # FiLM sites under use_pallas).
     bn_mode: str = "frozen"
+    validate_every: int = 10  # gen iterations (reference :842)
+    image_log_every: int = 500  # reference :858
+    n_val_images: int = 50  # validation images per dump (reference :862 [:50])
+    # The reference saves netG every generator iteration (reference :892);
+    # checkpoint_every=1 reproduces that.
+    checkpoint_every: int = 100
+    # Supersteps between metric fetches: each superstep's scalars are packed
+    # into one device vector, and the buffered vectors come to the host in
+    # one transfer every this-many supersteps, before each validation and
+    # at the end of the fit. The logged values and steps do not depend on it.
+    metric_flush_every: int = 25
     seed: int = 0
 
 
@@ -141,3 +164,15 @@ class EvalConfig:
     @property
     def wmh_threshold(self) -> float:
         return _threshold_for(self.use_probability_map)
+
+
+def to_dict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def save_config(cfg: Any, path: str | Path) -> None:
+    Path(path).write_text(json.dumps(to_dict(cfg), indent=2))
+
+
+def load_config(cls, path: str | Path):
+    return cls(**json.loads(Path(path).read_text()))

@@ -1,8 +1,8 @@
 """Per-subject preprocessing pipelines -> in-RAM fold arrays.
 
 Counterpart of ``depgan_tpu/data/dataset.py``: a numpy copy, so the port
-imports nothing of the JAX package (``train_val_split`` imports sklearn
-only when called).
+imports nothing of the JAX package; ``train_val_split`` is sklearn's split
+in numpy.
 
 Re-implements, as functions, the fold-loop data assembly the reference inlines
 per script:
@@ -19,6 +19,7 @@ reference's big in-RAM concatenation (reference :727-734) — a fold is ~5k
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -111,14 +112,16 @@ def load_uresnet_training_fold(cfg: DataConfig, fold: int) -> tuple[np.ndarray, 
 def train_val_split(
     x: np.ndarray, y: np.ndarray, val_fraction: float = 0.02, seed: int = 42
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """sklearn-compatible split (reference :742 uses
-    train_test_split(test_size=0.02, random_state=42))."""
-    from sklearn.model_selection import train_test_split
-
-    x_tr, x_val, y_tr, y_val = train_test_split(
-        x, y, test_size=val_fraction, random_state=seed
-    )
-    return x_tr, x_val, y_tr, y_val
+    """The reference's split (reference :742,
+    ``train_test_split(test_size=0.02, random_state=42)``) in numpy, for
+    the card's machine has no sklearn: sklearn's ``ShuffleSplit`` draws one
+    ``RandomState(seed).permutation(n)``, whose first ceil(fraction * n)
+    indices are the validation slices and the rest the training slices."""
+    n = x.shape[0]
+    n_val = math.ceil(val_fraction * n)
+    perm = np.random.RandomState(seed).permutation(n)
+    val, train = perm[:n_val], perm[n_val:]
+    return x[train], x[val], y[train], y[val]
 
 
 @dataclass

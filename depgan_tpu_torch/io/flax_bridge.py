@@ -7,7 +7,9 @@ keyed by the reference Keras layer names with array leaves: what
 ``models.init_generator`` and ``models.init_critic`` here write in numpy.
 The port's modules keep the Flax names and layouts, so parameter
 ``a.b.kernel`` is ``params["a"]["b"]["kernel"]`` and buffer ``a.b.mean`` is
-``batch_stats["a"]["b"]["mean"]``.
+``batch_stats["a"]["b"]["mean"]``. ``gan_trees_from_state`` and
+``uresnet_trees_from_state`` carry a training state back into such trees,
+with its Adam moments: checkpoints and the ``.h5`` export build on them.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..train.state import GanTrainState, UResNetTrainState, make_adam
+from ..train.state import GanTrainState, UResNetTrainState, adam_moments, make_adam
 
 
 def _tree_get(tree: dict, dotted: str):
@@ -134,3 +136,34 @@ def uresnet_train_state_from_trees(params: dict, batch_stats: dict, opt: dict, l
     adam = make_adam(tensors, lr, 0.9, 0.999, int(opt["count"]), _tensors(opt["mu"], device),
                      _tensors(opt["nu"], device))
     return UResNetTrainState(params=tensors, batch_stats=_tensors(batch_stats, device), opt=adam)
+
+
+def numpy_tree(tensors: dict[str, torch.Tensor]) -> dict:
+    """Flat ``{dotted name: tensor}`` -> a Flax-layout tree of numpy
+    arrays on the host (copies)."""
+    return unflatten_tree({name: t.detach().cpu().numpy().copy() for name, t in tensors.items()})
+
+
+def _adam_tree(opt: torch.optim.Adam, params: dict[str, torch.Tensor]) -> dict:
+    count, mu, nu = adam_moments(opt, params)
+    return {"count": count, "mu": numpy_tree(mu), "nu": numpy_tree(nu)}
+
+
+def gan_trees_from_state(state: GanTrainState) -> dict:
+    """Inverse of ``gan_train_state_from_trees``: the numpy Flax-layout
+    trees of ``state``, with each Adam's ``count``, ``mu`` and ``nu``
+    (optax's ``ScaleByAdamState``), in the layout that function takes."""
+    trees = {"g_stats": numpy_tree(state.g_stats)}
+    for prefix in ("g", "dy2", "ddem"):
+        params = getattr(state, f"{prefix}_params")
+        trees[f"{prefix}_params"] = numpy_tree(params)
+        trees[f"{prefix}_opt"] = _adam_tree(getattr(state, f"{prefix}_opt"), params)
+    return trees
+
+
+def uresnet_trees_from_state(state: UResNetTrainState) -> dict:
+    """Inverse of ``uresnet_train_state_from_trees``: ``{"params",
+    "batch_stats", "opt"}`` of ``state`` as numpy Flax-layout trees, ``opt``
+    as ``{"count", "mu", "nu"}``."""
+    return {"params": numpy_tree(state.params), "batch_stats": numpy_tree(state.batch_stats),
+            "opt": _adam_tree(state.opt, state.params)}

@@ -33,9 +33,21 @@ eagerly and updates the state in place; epoch-tail rows (beyond
 ``n_valid``) are skipped instead of computed and discarded, so their
 metrics are NaN; every random draw can be passed in (``draws``), so a test
 can feed the JAX draws.
+
+``fit_fold`` is JAX's epoch loop (:650-850) with ``dispatch_chunk=1``, one
+superstep a loop turn: the warm-up schedule from the ``Counters``, the
+epoch-tail supersteps, the counters in JAX's order, the metrics packed
+into one device vector a superstep and fetched in one transfer every
+``metric_flush_every`` supersteps (``MetricBuffer``), validation
+(``val_step``: the plain generator in inference mode, K8 at its FiLM sites
+under ``use_pallas``, and the plain Y2 critic), images, checkpoints and
+the graph of the first superstep.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -43,16 +55,100 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from ..config import DataConfig, GanTrainConfig, ModelConfig
+from ..data.pipeline import EpochShuffler
 from ..io.flax_bridge import gan_train_state_from_trees, unflatten_tree, zeros_like_tree
 from ..models.blocks import Dropout
 from ..models.critic import DisC2DFCN1, init_critic
 from ..models.generator import GenUNet2D, dropout_masks, init_generator
 from ..ops.fast_critic import FusedCritic
 from ..ops.fast_gen import FusedGenerator
-from .state import GanTrainState
+from ..utils.profiling import StepTimer
+from .state import Counters, GanTrainState
 from .wgan_gp import critic_step_loss, generator_loss
 
-GEN_KEYS = ("errG", "errG_CY2", "errG_DEM", "errG_MSE", "errG_VOL", "errG_WMH")
+GEN_TAGS = (("errG_losses", "errG"), ("errG_CY2_losses", "errG_CY2"),
+            ("errG_DEM_losses", "errG_DEM"), ("errG_MSE_losses", "errG_MSE"),
+            ("errG_VOL_losses", "errG_VOL"), ("errG_WMH_losses", "errG_WMH"))
+GEN_KEYS = tuple(k for _, k in GEN_TAGS)
+CRIT_KEYS = ("crit_y2_real", "crit_y2_fake", "crit_dem_real", "crit_dem_fake")
+
+
+def pack_superstep_metrics(metrics: dict) -> torch.Tensor:
+    """One superstep's scalar metrics as ONE float32 device vector: the
+    four (D,) critic rows, then the six generator losses (:62-78). The
+    fit buffers these and fetches them together (``MetricBuffer``), so the
+    host does not wait on the device at every superstep."""
+    rows = [metrics[k].float().reshape(-1) for k in CRIT_KEYS]
+    return torch.cat(rows + [torch.stack([metrics["gen"][k].float() for k in GEN_KEYS])])
+
+
+def unpack_superstep_metrics(flat, d: int) -> dict:
+    """Inverse of ``pack_superstep_metrics`` on a host vector (:81-89)."""
+    flat = np.asarray(flat)
+    rows = flat[: 4 * d].reshape(4, d)
+    gen = dict(zip(GEN_KEYS, flat[4 * d: 4 * d + len(GEN_KEYS)]))
+    return {**dict(zip(CRIT_KEYS, rows)), "gen": gen}
+
+
+def log_superstep_metrics(log, metrics: dict, counters: Counters, n_valid: int) -> dict:
+    """The reference's full scalar tag set for one superstep (reference
+    :811-886, JAX :92-119): the per-critic-iteration errCrit_* streams of
+    the ``n_valid`` real rows, the per-generator-iteration errDC_*
+    snapshots and the six generator loss terms. Returns the generator
+    losses as floats."""
+    y2r, y2f, dr, df = (np.asarray(metrics[k])[:n_valid] for k in CRIT_KEYS)
+    for j in range(n_valid):
+        log("errCrit_aaLosses", y2r[j] - y2f[j], counters.crit_iterations + j)
+        log("errCrit_aReal_losses", y2r[j], counters.crit_iterations + j)
+        log("errCrit_aFake_losses", y2f[j], counters.crit_iterations + j)
+        log("errCrit_DEM_aaLosses", dr[j] - df[j], counters.crit_dem_iterations + j)
+        log("errCrit_DEM_aReal_losses", dr[j], counters.crit_dem_iterations + j)
+        log("errCrit_DEM_aFake_losses", df[j], counters.crit_dem_iterations + j)
+    gi = counters.gen_iterations
+    log("errDC_aaLosses", y2r[-1] - y2f[-1], gi)
+    log("errDC_aReal_losses", y2r[-1], gi)
+    log("errDC_aFake_losses", y2f[-1], gi)
+    log("errDC_DEM_aaLosses", dr[-1] - df[-1], gi)
+    log("errDC_DEM_aReal_losses", dr[-1], gi)
+    log("errDC_DEM_aFake_losses", df[-1], gi)
+    gen_aux = {k: float(v) for k, v in metrics["gen"].items()}
+    for tag, key in GEN_TAGS:
+        log(tag, gen_aux[key], gi)
+    return gen_aux
+
+
+class MetricBuffer:
+    """Deferred metric fetch (JAX ``fit_fold``'s ``pending`` and ``flush``,
+    :703-730): each superstep adds its packed device vector with its D,
+    n_valid and counters; ``flush`` concatenates the buffered vectors on
+    the device, brings them to the host in ONE transfer, and logs them in
+    order. The logged values and steps are those of a flush per superstep."""
+
+    def __init__(self, log):
+        self.log = log
+        self.pending: list[tuple[torch.Tensor, int, int, Counters]] = []
+        self.last_logged: tuple[dict, dict] | None = None  # (metrics, generator losses)
+
+    def __len__(self) -> int:
+        return len(self.pending)
+
+    def append(self, vec: torch.Tensor, d: int, n_valid: int, counters: Counters) -> None:
+        self.pending.append((vec, d, n_valid, counters))
+
+    def flush(self) -> tuple[dict, dict] | None:
+        """Logs the buffered supersteps; returns the last one's host
+        metrics and generator losses (the last flushed, if none is
+        buffered)."""
+        if not self.pending:
+            return self.last_logged
+        flat = torch.cat([vec for vec, *_ in self.pending]).cpu().numpy()
+        off = 0
+        for vec, d, n_valid, counters in self.pending:
+            m = unpack_superstep_metrics(flat[off:off + vec.numel()], d)
+            self.last_logged = (m, log_superstep_metrics(self.log, m, counters, n_valid))
+            off += vec.numel()
+        self.pending = []
+        return self.last_logged
 
 
 class GanTrainer:
@@ -74,10 +170,10 @@ class GanTrainer:
             # warns (on a CUDA device) and runs its plain torch version.
             self.fused = FusedGenerator(model_cfg, dtype, self.device)
             self.fused_critic = FusedCritic(model_cfg, dtype)
-        else:
-            # Parameters come from the state through functional_call.
-            self.gen = GenUNet2D(model_cfg, device="meta")
-            self.critic = DisC2DFCN1(model_cfg, device="meta")
+        # The plain modules: the plain path's networks, and validation's on
+        # every path. Parameters come from the state through functional_call.
+        self.gen = GenUNet2D(model_cfg, device="meta")
+        self.critic = DisC2DFCN1(model_cfg, device="meta")
 
     # ------------------------------------------------------------------ state
 
@@ -170,7 +266,21 @@ class GanTrainer:
         ``n_valid`` rows are real batches. ``x_all`` (N, H, W, C_in) and
         ``y_all`` (N, H, W, 1) are the fold's slices on the device. The
         draws come from ``generator`` unless passed in (``draw``'s keys).
-        Updates ``state`` in place; returns it and the metrics."""
+        Updates ``state`` in place; returns it and the metrics.
+
+        cuDNN runs its deterministic algorithms here (no autotuning), so
+        that the same state and draws give the same superstep bit for bit,
+        as JAX's does, and a run resumed from a checkpoint repeats the
+        uninterrupted one. With cuDNN's default choice two runs from one
+        state differ after one superstep (chip_smoke.py phase 11 prints by
+        how much), Adam turning rounding-level differences of a gradient
+        into steps of up to ~lr."""
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                         allow_tf32=cudnn.allow_tf32):
+            return self._superstep(state, x_all, y_all, idx_block, n_valid, generator, draws)
+
+    def _superstep(self, state, x_all, y_all, idx_block, n_valid, generator, draws):
         d, batch = idx_block.shape
         if not 1 <= n_valid <= d:
             raise ValueError(f"n_valid must be in [1, {d}], got {n_valid}")
@@ -227,3 +337,141 @@ class GanTrainer:
                    "crit_dem_real": dem_real, "crit_dem_fake": dem_fake,
                    "gen": {k: aux[k].detach() for k in GEN_KEYS}, "best_noise_idx": best}
         return state, metrics
+
+    # ------------------------------------------------------------ validation
+
+    @torch.no_grad()
+    def val_step(self, state: GanTrainState, x_val, y2_val, fixed_noise):
+        """Validation critic scores and the generated DEM (reference
+        :845-847, JAX :535-562): the plain generator in inference mode
+        (K8 at its FiLM sites under ``use_pallas``) and the plain Y2
+        critic, over the whole validation set in one call. Returns the
+        three mean scores (device scalars) and the DEM, which the image
+        stream reuses.
+
+        Faithful quirk: ``val_D_real_generated_loss`` scores the critic on
+        the raw DEM, not the follow-up y1 + DEM
+        (``netD_y2.predict(netG.predict([x_val, fixed_noise]))``, reference
+        :847), though the Y2 critic trains on follow-up images."""
+        def critic(img):
+            return functional_call(self.critic, state.dy2_params, (img,))
+
+        y1 = x_val[..., :1]
+        d_fake = critic(y1).mean()
+        d_real = critic(y2_val).mean()
+        dem = functional_call(self.gen, {**state.g_params, **state.g_stats}, (x_val, fixed_noise))
+        d_gen = critic(dem).mean()
+        return d_fake, d_real, d_gen, dem
+
+    # ------------------------------------------------------------------- fit
+
+    def fit_fold(self, state: GanTrainState, counters: Counters, x_train: np.ndarray,
+                 y_train: np.ndarray, x_val: np.ndarray, y_val: np.ndarray,
+                 n_epochs: int | None = None, logger=None, checkpoint_fn=None, fold: int = 1,
+                 seed: int | None = None, fixed_noise=None, draws_fn=None):
+        """Train one fold for ``n_epochs`` (``cfg.n_epochs`` if None) from
+        ``state`` and ``counters`` (JAX :650-850); returns the state and the
+        counters.
+
+        Each loop turn runs one superstep of D critic steps (the warm-up
+        schedule's D for the current generator iteration) over the next D
+        batches of the epoch's shuffle (``EpochShuffler`` seeded
+        ``cfg.seed + fold``), fewer at the epoch's tail. Then, in JAX's
+        order: the critic counters advance by the real rows; the metrics
+        are buffered, and flushed every ``metric_flush_every`` supersteps;
+        every ``validate_every`` generator iterations a flush, ``val_step``,
+        its three scores, the ``perf/*`` scalars and the ``TRN FOLD`` line,
+        and every ``image_log_every`` the DEM and fake follow-up images;
+        the generator counter advances, and ``checkpoint_fn(state,
+        counters)`` runs every ``checkpoint_every``. The first superstep
+        runs under ``logger.log_graph``. A last flush ends the fit.
+
+        The random draws — the fixed validation noise, then each
+        superstep's ``draw`` — come from one ``torch.Generator`` seeded
+        ``seed`` (``cfg.seed + fold`` if None). A test can pass
+        ``fixed_noise`` and ``draws_fn(i, d, batch)``, the draws of the
+        i-th superstep of this fit, instead."""
+        cfg = self.cfg
+        n_epochs = n_epochs if n_epochs is not None else cfg.n_epochs
+        gen = torch.Generator(device=self.device).manual_seed(
+            seed if seed is not None else cfg.seed + fold)
+
+        def put(a):
+            return torch.tensor(np.asarray(a), dtype=torch.float32, device=self.device)
+
+        x_all, y_all, xv, yv = put(x_train), put(y_train), put(x_val), put(y_val)
+        if fixed_noise is None:
+            fixed_noise = torch.randn((x_val.shape[0], self.model_cfg.noise_size, 1),
+                                      generator=gen, device=self.device)
+        else:
+            fixed_noise = put(fixed_noise)
+        shuffler = EpochShuffler(x_train.shape[0], cfg.batch_size, cfg.seed + fold)
+        t0 = time.time()
+        log = logger.log_scalar if logger is not None else (lambda *a: None)
+        timer = StepTimer()
+        buffer = MetricBuffer(log)
+        n_run = 0  # supersteps of this fit
+
+        for epoch in range(n_epochs):
+            idx_epoch = shuffler.epoch()
+            n_batches = idx_epoch.shape[0]
+            i = 0
+            while i < n_batches:
+                d = self._d_iters_for_gi(counters.gen_iterations)
+                n_valid = min(d, n_batches - i)
+                block = np.zeros((d, cfg.batch_size), np.int32)
+                block[:n_valid] = idx_epoch[i:i + n_valid]
+                i += n_valid
+                draws = (draws_fn(n_run, d, cfg.batch_size) if draws_fn is not None
+                         else self.draw(d, cfg.batch_size, gen))
+
+                def run(s, block=block, n_valid=n_valid, draws=draws):
+                    return self.superstep(s, x_all, y_all, block, n_valid, draws=draws)
+
+                if logger is not None and n_run == 0:
+                    # TensorBoard graph tab (reference log_graph :174-175,
+                    # :510): the operators of the superstep about to run.
+                    state, metrics = logger.log_graph(run, (state,))
+                else:
+                    state, metrics = run(state)
+                n_run += 1
+
+                buffer.append(pack_superstep_metrics(metrics), d, n_valid, counters)
+                counters = dataclasses.replace(
+                    counters, crit_iterations=counters.crit_iterations + n_valid,
+                    crit_dem_iterations=counters.crit_dem_iterations + n_valid)
+                gi = counters.gen_iterations
+                timer.step()
+                if len(buffer) >= cfg.metric_flush_every:
+                    buffer.flush()
+
+                # --- validation (reference :842-855) ---
+                if gi % cfg.validate_every == 0:
+                    m_last, gen_aux = buffer.flush()
+                    d_fake, d_real, d_gen, val_dem = self.val_step(state, xv, yv, fixed_noise)
+                    vals = torch.stack([d_fake, d_real, d_gen]).cpu().numpy()  # one transfer
+                    log("val_D_fake_loss", float(vals[0]), gi)
+                    log("val_D_real_loss", float(vals[1]), gi)
+                    log("val_D_real_generated_loss", float(vals[2]), gi)
+                    if logger is not None:
+                        timer.log_to(logger, gi)
+                    err_d = float(m_last["crit_y2_real"][n_valid - 1]
+                                  - m_last["crit_y2_fake"][n_valid - 1])
+                    print(f"TRN FOLD {fold} [{epoch}/{n_epochs}][{i}/{n_batches}]"
+                          f"[{gi}] errD {err_d:+.4f} "
+                          f"errG {gen_aux['errG']:+.4f} ({time.time() - t0:.1f}s)")
+                    # Validation images (reference :858-865): the DEM and the
+                    # fake follow-up of the first n_val_images slices.
+                    if logger is not None and gi % cfg.image_log_every == 0:
+                        k_img = cfg.n_val_images
+                        dem = val_dem[:k_img]
+                        fake = xv[:k_img, ..., :1] + dem
+                        logger.log_images(f"attributed_img_step{gi}", dem.cpu().numpy(), gi)
+                        logger.log_images(f"fake_img_step{gi}", fake.cpu().numpy(), gi)
+
+                counters = dataclasses.replace(counters, gen_iterations=gi + 1)
+                if checkpoint_fn is not None and (gi + 1) % cfg.checkpoint_every == 0:
+                    checkpoint_fn(state, counters)
+
+        buffer.flush()
+        return state, counters

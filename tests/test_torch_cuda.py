@@ -1168,3 +1168,63 @@ def test_deconv_and_head_wgmma_refusals(cuda):
     assert lib.depgan_deconv_s2d(1, x.data_ptr(), w4.data_ptr(), bias.data_ptr(), out.data_ptr(),
                                  2, 300, 64, 64, s) != 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fit_fold_launches(cuda, dtype):
+    """``GanTrainer.fit_fold`` at image 64, first_fm 32, batch 2, one epoch
+    of 10 batches (supersteps of D 3, 2, 2, 2 and an epoch tail of one
+    real row), validation every 2 generator iterations: the kernel
+    launches are exactly ``chip_smoke.fit_launches``' (each superstep's by
+    its n_valid, and 7 K8 a validation forward), and the logged values are
+    finite."""
+    import chip_smoke
+    from depgan_tpu_torch.config import GanTrainConfig
+    from depgan_tpu_torch.train.gan_trainer import GanTrainer
+    from depgan_tpu_torch.train.state import Counters
+
+    cfg = ModelConfig(image_size=64, first_fm=32, use_pallas=True, compute_dtype=dtype)
+    train_cfg = GanTrainConfig(batch_size=2, n_epochs=1, d_iters=2, warmup_d_iters=3,
+                               warmup_until=1, k_noise=2, validate_every=2,
+                               metric_flush_every=3)
+    trainer = GanTrainer(cfg, train_cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    x, y = (rng.uniform(size=(21, 64, 64, 1)).astype(np.float32) for _ in range(2))
+    logged = []
+
+    class Log:
+        def log_scalar(self, tag, value, step):
+            logged.append(float(value))
+
+        def log_images(self, *a):
+            pass
+
+        def log_graph(self, fn, args, max_nodes=5000):
+            return fn(*args)
+
+    K.reset_launch_counts()
+    state, counters = trainer.fit_fold(trainer.init_state(0), Counters(), x[:20], y[:20],
+                                       x[20:], y[20:], logger=Log())
+    launches = K.launches()
+    schedule = chip_smoke.fit_schedule(10, train_cfg)
+    assert schedule == [(3, 3), (2, 2), (2, 2), (2, 2), (2, 1)]
+    assert counters.gen_iterations == len(schedule) and counters.crit_iterations == 10
+    assert launches == chip_smoke.fit_launches(schedule, 2, validations=3)
+    assert logged and np.isfinite(logged).all()
+
+
+@pytest.mark.gpu
+def test_inference_benches(cuda):
+    """``gen_inference_bench`` and ``uresnet_inference_bench`` at a small
+    ``n_scan`` and batch: JAX's keys, a positive rate, and 8/2/2/1
+    launches a forward."""
+    from depgan_tpu_torch import benchmarks
+
+    for bench in (benchmarks.gen_inference_bench, benchmarks.uresnet_inference_bench):
+        result = bench(n_scan=2, batch=4)
+        assert {"metric", "value", "unit", "vs_baseline"} <= result.keys()
+        assert result["value"] > 0 and len(result["reps_ms"]) == 4
+        launches = {k: v for k, v in result["launches"].items() if v}
+        assert launches == {"conv3x3_s2d_fused": 16, "conv3x3_s2d_fused_pool": 4,
+                            "conv3x3_s2d_fused2": 4, "deconv_s2d": 2}

@@ -17,7 +17,7 @@ from depgan_tpu.eval.predict import EnsemblePredictor as JaxEnsemblePredictor
 from depgan_tpu.eval.predict import reconstruct_follow_up as jax_reconstruct
 from depgan_tpu.models import GenUNet2D as FlaxGenUNet2D
 from depgan_tpu.ops.fast_gen import FastGenerator as JaxFastGenerator
-from depgan_tpu_torch import cli
+from depgan_tpu_torch import cli, drivers
 from depgan_tpu_torch.eval.predict import EnsemblePredictor, reconstruct_follow_up
 from depgan_tpu_torch.eval.runner import run_gan_testing, run_uresnet_testing
 from depgan_tpu_torch.io.flax_bridge import load_flax_variables
@@ -96,16 +96,20 @@ def test_entry_points_default_to_cuda():
     """The port's entry points run on the card unless the caller asks for
     the CPU, as these tests do."""
     for entry in (EnsemblePredictor, FastGenerator, GanTrainer, UResNetTrainer,
-                  run_gan_testing, run_uresnet_testing):
+                  run_gan_testing, run_uresnet_testing, drivers.run_gan_training,
+                  drivers.run_uresnet_training):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
     for cmd in ("test-gan", "test-uresnet"):
         assert cli.build_parser().parse_args([cmd, "--weights", "w.h5"]).device == "cuda"
+    for args in (["train-gan"], ["train-uresnet"], ["import-weights", "--h5", "w.h5"]):
+        assert cli.build_parser().parse_args(args).device == "cuda"
 
 
 def test_port_imports_no_jax():
     """Nothing of JAX, Flax or the JAX package loads with the port, and
     neither h5py nor sklearn, which the card's machine lacks (the .h5
-    import and the training split load them when called)."""
+    import and export load h5py when called; the training split is
+    numpy), nor Pillow (loaded when an image is logged)."""
     code = ("import sys; import depgan_tpu_torch.eval.predict, depgan_tpu_torch.ops.fast_gen, "
             "depgan_tpu_torch.io.flax_bridge, depgan_tpu_torch.models, "
             "depgan_tpu_torch.ops.fast_critic, depgan_tpu_torch.train.gan_trainer, "
@@ -118,9 +122,11 @@ def test_port_imports_no_jax():
             "depgan_tpu_torch.data.native, depgan_tpu_torch.data.dataset, "
             "depgan_tpu_torch.eval.metrics, depgan_tpu_torch.eval.writers, "
             "depgan_tpu_torch.eval.runner, depgan_tpu_torch.io.h5_import, "
-            "depgan_tpu_torch.drivers, depgan_tpu_torch.cli; "
+            "depgan_tpu_torch.drivers, depgan_tpu_torch.cli, depgan_tpu_torch.config, "
+            "depgan_tpu_torch.io.checkpoint, depgan_tpu_torch.utils.logging, "
+            "depgan_tpu_torch.utils.tb_writer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "             ('jax', 'flax', 'jaxlib', 'depgan_tpu', 'h5py', 'sklearn')); "
+            "             ('jax', 'flax', 'jaxlib', 'depgan_tpu', 'h5py', 'sklearn', 'PIL')); "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
