@@ -1,0 +1,42 @@
+"""What the drivers share: the program's model configuration of a cell, the
+generator's weights made from the seed, and a wait for the device."""
+
+from __future__ import annotations
+
+import torch
+
+from portbench.reference import nets
+from portbench.yardstick import compare, weights
+
+
+def model_config(cell):
+    """``depgan_tpu_torch``'s ``ModelConfig`` from the cell's configuration
+    file and its mix's path (``compute_dtype``, ``use_pallas``)."""
+    from depgan_tpu_torch.config import ModelConfig
+
+    cfg, tr = cell.config, cell.traffic
+    return ModelConfig(image_size=cfg["image_size"], noise_size=cfg["noise_size"],
+                       first_fm=cfg["first_fm"], n_input_channels=cfg["n_input_channels"],
+                       n_out=cfg["n_out"], dropout_mode=cfg["dropout_mode"],
+                       dropout_rate=cfg["dropout_rate"], compute_dtype=tr["compute_dtype"],
+                       use_pallas=tr["use_pallas"])
+
+
+def generator_weights(cell, seed: int, device, x: torch.Tensor):
+    """Generator parameters and statistics from the seed, the head
+    calibrated over ``x`` with the reference."""
+    cfg = cell.config
+    spec = nets.generator_spec(cfg)
+    params, stats = weights.split(weights.make(spec, seed, device), spec)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    z = torch.randn((x.shape[0], cfg["noise_size"], 1), generator=gen, device=device)
+    logits = []
+    with torch.no_grad(), compare.exact_float32():
+        nets.generator(params, stats, cfg, x, z, nets.Precision(), head_hook=logits.append)
+    weights.calibrate_head(params, logits[0])
+    return params, stats
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
