@@ -17,6 +17,7 @@ from ..config import ModelConfig
 from ..io.flax_bridge import load_flax_variables
 from ..models.generator import GenUNet2D
 from ..ops.fast_gen import FastGenerator
+from ..utils.profiling import span
 
 
 class EnsemblePredictor:
@@ -48,22 +49,25 @@ class EnsemblePredictor:
         noise_size, 1), mask (Z, H, W) -> (Z, H, W, C_out) float32."""
         total = None
         for z in noises:
-            pred = self._forward(x, z).float() * mask[..., None]
-            total = pred if total is None else total.add_(pred)
+            with span("predict.forward"):
+                pred = self._forward(x, z).float() * mask[..., None]
+                total = pred if total is None else total.add_(pred)
         return total / noises.shape[0]
 
     def predict(self, x: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """Returns the masked ensemble mean, shape (Z, H, W, C_out).
 
         ``mask`` is (Z, H, W), the ICV and not-stroke-lesion mask at the 2nd
-        time point.
+        time point. Spans: ``predict`` around the call, ``predict.forward``
+        around each repeat's forward, mask and sum.
         """
-        noises = torch.randn((self.n_repeat, x.shape[0], self.noise_size, 1),
-                             generator=self._gen, device=self.device)
-        out = self._ensemble(
-            torch.as_tensor(x, dtype=torch.float32, device=self.device), noises,
-            torch.as_tensor(mask, dtype=torch.float32, device=self.device))
-        return out.cpu().numpy()
+        with span("predict"):
+            noises = torch.randn((self.n_repeat, x.shape[0], self.noise_size, 1),
+                                 generator=self._gen, device=self.device)
+            out = self._ensemble(
+                torch.as_tensor(x, dtype=torch.float32, device=self.device), noises,
+                torch.as_tensor(mask, dtype=torch.float32, device=self.device))
+            return out.cpu().numpy()
 
 
 def reconstruct_follow_up(y1: np.ndarray, dem: np.ndarray) -> np.ndarray:

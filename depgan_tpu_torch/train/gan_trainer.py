@@ -12,9 +12,12 @@ Counterpart of ``depgan_tpu/train/gan_trainer.py`` (reference
 - the generator's Adam step on the last valid batch with the probe's best
   noise.
 
-Each of the four phases is a ``torch.profiler`` range
-(``superstep.critic_y2``, ``.critic_dem``, ``.probe``, ``.generator_step``),
-so a profile of a superstep splits its device time by phase.
+The superstep is a ``profiling.span`` (``superstep``), and so is each of
+its four phases (``superstep.critic_y2``, ``.critic_dem``, ``.probe``,
+``.generator_step``): under ``torch.profiler`` each is a range of the
+profile, so a profile of a superstep splits its device time by phase, and
+a span record on the host's clock, so the card's idle time can be put down
+to the phase that was running.
 
 With ``bn_mode='frozen'`` (Keras learning-phase 0), ``model_cfg.use_pallas``
 selects the fused path (``FusedGenerator`` and ``FusedCritic`` through the
@@ -52,7 +55,6 @@ import time
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from ..config import DataConfig, GanTrainConfig, ModelConfig
 from ..data.pipeline import EpochShuffler
@@ -62,7 +64,7 @@ from ..models.critic import DisC2DFCN1, init_critic
 from ..models.generator import GenUNet2D, dropout_masks, init_generator
 from ..ops.fast_critic import FusedCritic
 from ..ops.fast_gen import FusedGenerator
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 from .state import Counters, GanTrainState
 from .wgan_gp import critic_step_loss, generator_loss
 
@@ -277,7 +279,7 @@ class GanTrainer:
         into steps of up to ~lr."""
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
-                         allow_tf32=cudnn.allow_tf32):
+                         allow_tf32=cudnn.allow_tf32), span("superstep"):
             return self._superstep(state, x_all, y_all, idx_block, n_valid, generator, draws)
 
     def _superstep(self, state, x_all, y_all, idx_block, n_valid, generator, draws):
@@ -291,11 +293,11 @@ class GanTrainer:
 
         with torch.no_grad():
             gen_fwd = self._gen_forward(state)
-        with record_function("superstep.critic_y2"):
+        with span("superstep.critic_y2"):
             y2_real, y2_fake = self._critic_loop("y2", state.dy2_params, state.dy2_opt, xb, yb,
                                                  draws["noises_y2"], draws["eps_y2"], n_valid,
                                                  gen_fwd)
-        with record_function("superstep.critic_dem"):
+        with span("superstep.critic_dem"):
             dem_real, dem_fake = self._critic_loop("dem", state.ddem_params, state.ddem_opt,
                                                    xb, yb, draws["noises_dem"],
                                                    draws["eps_dem"], n_valid, gen_fwd)
@@ -314,11 +316,11 @@ class GanTrainer:
 
         # Best-of-k probe, no update (reference :868-877).
         probes = draws["probe_noises"]
-        with torch.no_grad(), record_function("superstep.probe"):
+        with torch.no_grad(), span("superstep.probe"):
             probe_losses = torch.stack([loss_of(gen_fwd(x, z))[0] for z in probes])
         best = torch.argmin(probe_losses)
 
-        with record_function("superstep.generator_step"):
+        with span("superstep.generator_step"):
             if self.batch_bn:
                 drop = Dropout(self.model_cfg.dropout_rate, draws.get("dropout"), generator)
                 dem = functional_call(self.gen, {**state.g_params, **state.g_stats},

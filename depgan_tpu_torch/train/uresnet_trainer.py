@@ -38,7 +38,7 @@ from ..data.preprocess import one_hot
 from ..io.flax_bridge import uresnet_train_state_from_trees, zeros_like_tree
 from ..models.blocks import Dropout
 from ..models.generator import GenUNet2D, init_generator
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 from .state import UResNetTrainState
 
 KERAS_EPS = 1e-7  # Keras clips softmax outputs before the log
@@ -93,19 +93,27 @@ class UResNetTrainer:
         its gradients, Adam, the new BatchNorm statistics. The dropout masks
         come from ``dropout`` (keep masks by layer name) where given, else
         from ``generator``. Updates ``state`` in place; returns it and the
-        loss (a scalar on the device)."""
-        idx = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=self.device)
-        x, y, noise = x_all[idx], y_all[idx], noise_all[idx]
-        drop = Dropout(self.model_cfg.dropout_rate, dropout, generator)
-        out = functional_call(self.model, {**state.params, **state.batch_stats}, (x, noise),
-                              {"train": True, "dropout": drop})
-        loss = categorical_crossentropy(out, y)
-        params = list(state.params.values())
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
-            p.grad = g
-        state.opt.step()
-        state.batch_stats = self.model.updated_batch_stats()
-        return state, loss.detach()
+        loss (a scalar on the device).
+
+        Spans: ``uresnet.step`` around the whole, ``uresnet.forward`` (the
+        forward and the CCE) and ``uresnet.backward`` (the gradients) in it.
+        The backward's kernels launch from autograd's thread; its span
+        brackets them in time."""
+        with span("uresnet.step"):
+            idx = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=self.device)
+            x, y, noise = x_all[idx], y_all[idx], noise_all[idx]
+            drop = Dropout(self.model_cfg.dropout_rate, dropout, generator)
+            with span("uresnet.forward"):
+                out = functional_call(self.model, {**state.params, **state.batch_stats},
+                                      (x, noise), {"train": True, "dropout": drop})
+                loss = categorical_crossentropy(out, y)
+            params = list(state.params.values())
+            with span("uresnet.backward"):
+                for p, g in zip(params, torch.autograd.grad(loss, params)):
+                    p.grad = g
+            state.opt.step()
+            state.batch_stats = self.model.updated_batch_stats()
+            return state, loss.detach()
 
     @torch.no_grad()
     def val_loss(self, state: UResNetTrainState, x, noise, y) -> torch.Tensor:

@@ -1,17 +1,27 @@
-"""Step and kernel timing.
+"""Step and kernel timing, and the program's spans.
 
 ``StepTimer`` is the counterpart of ``depgan_tpu/utils/profiling.py`` (:20):
 rolling per-step wall times and steps per second, logged as the ``perf/*``
 scalars. Host clock: a step ends where the caller fetches its result.
 ``cuda_graph_ms`` times launches on the card in a CUDA graph.
+
+``span(name)`` marks a phase of the program (``predict``, ``uresnet.step``,
+``superstep`` and their parts) while a ``torch.profiler`` profile runs, and
+does nothing otherwise. ``spans()`` returns what was recorded.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from collections import deque
+from contextlib import nullcontext
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as autograd_profiler
+from torch.profiler import record_function
 
 
 class StepTimer:
@@ -63,3 +73,80 @@ def cuda_graph_ms(fn, iters: int, replays: int = 2) -> float:
         best = min(best, start.elapsed_time(end) / iters)
     graph.reset()
     return best
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. Times are ``time.time_ns()``, the clock the
+    profiler stamps its events with, so a span lines up with the device's
+    timeline. ``parent`` is None for a root; every span under one root
+    carries its ``id`` as ``root``."""
+
+    name: str
+    id: int
+    parent: int | None
+    root: int
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+# The records kept: the newest SPAN_BUFFER, enough for minutes of any entry
+# point's spans (a serving request records n_repeat + 1, a step 3, a
+# superstep 5).
+SPAN_BUFFER = 1 << 16
+_records: deque[SpanRecord] = deque(maxlen=SPAN_BUFFER)
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_stack = threading.local()  # .open: the (id, root) of this thread's open spans
+_OFF = nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "root", "start", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        open_ = getattr(_stack, "open", None)
+        if open_ is None:
+            open_ = _stack.open = []
+        self.id = next(_ids)
+        self.parent, self.root = open_[-1] if open_ else (None, self.id)
+        open_.append((self.id, self.root))
+        self.start = time.time_ns()
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        end = time.time_ns()
+        _stack.open.pop()
+        record = SpanRecord(self.name, self.id, self.parent, self.root, threading.get_ident(),
+                            self.start, end)
+        with _lock:
+            _records.append(record)
+        return False
+
+
+def span(name: str):
+    """A context manager around one phase of the program. While a
+    ``torch.profiler`` profile runs (on any thread: the profiler's flag is
+    process-wide), it enters ``record_function(name)`` and records a
+    ``SpanRecord`` on exit; otherwise it is one shared no-op, which reads no
+    clock."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def spans() -> list[SpanRecord]:
+    """The recorded spans, oldest first."""
+    with _lock:
+        return list(_records)
+
+
+def clear_spans() -> None:
+    with _lock:
+        _records.clear()
