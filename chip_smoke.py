@@ -253,13 +253,13 @@ PROBE_KERNELS = ("kernel_anatomy[full]", "kernel_anatomy[no_epi]", "kernel_anato
                  "kernel_anatomy[stage_only]", "conv3x3_rowblk", "deint_reshape_idx",
                  "deint_merge")
 # What ptxas gives the GEMM engine's production instantiations (dtype, N
-# tile) on the H100's toolchain, as it did before the engine had probe
-# phases (PERF.md section 6); the phases are compiled away from them, so
-# they must read the same.
+# tile) on the H100's toolchain (PERF.md section 6): bf16 as before the
+# engine had probe phases, which are compiled away from them; float32 with
+# its 16 x 8 register tiles, one block an SM (255 registers).
 ENGINE_FIGURES = {
     ("bfloat16", 64): (128, 32, 68, 84), ("bfloat16", 128): (128, 0, 0, 0),
-    ("bfloat16", 256): (126, 0, 0, 0), ("float32", 64): (128, 80, 144, 208),
-    ("float32", 128): (128, 24, 48, 72), ("float32", 256): (122, 0, 0, 0),
+    ("bfloat16", 256): (126, 0, 0, 0), ("float32", 64): (255, 24, 20, 44),
+    ("float32", 128): (255, 0, 0, 0), ("float32", 256): (255, 0, 0, 0),
 }  # registers, stack frame bytes, spill store bytes, spill load bytes
 # What ptxas gives the wgmma mainloop's instantiations (N tile, m64 tiles a
 # consumer warpgroup, K2's pooled epilogue, phase: 0 production, 1-4 P1's

@@ -25,13 +25,14 @@
 // stored planes do, so every conv sees SAME padding.
 //
 // Each stage is a GEMM over its region's positions (64 x 128 block tiles,
-// the engine's Mma: wmma for bf16, FMAs for f32), k-tiles of 32 gathered
-// into shared memory behind the same 3-stage cp.async pipeline as
-// s2d_gemm.cuh (the weights stream from L2). Each output element sums its
-// products in the engine's order (the two operands of stage 0 one after
-// the other, as conv3x3_s2d_fused2 does) and its epilogue rounds where the
-// sequential kernels store, so the chain reproduces the sequential kernels
-// (K1 -> K1 film -> K1/K2, or K3 -> K1 film -> K1) bit for bit.
+// the engine's Mma: wmma for bf16, FMAs for f32), k-tiles of the engine's
+// depth (32 bf16, 16 f32) gathered into shared memory behind the same
+// 3-stage cp.async pipeline as s2d_gemm.cuh (the weights stream from L2).
+// Each output element sums its products in the engine's order (the two
+// operands of stage 0 one after the other, as conv3x3_s2d_fused2 does) and
+// its epilogue rounds where the sequential kernels store, so the chain
+// reproduces the sequential kernels (K1 -> K1 film -> K1/K2, or K3 -> K1
+// film -> K1) bit for bit.
 //
 // T is 8 where the two regions and the staging fit in shared memory
 // (bf16: 166 KB at 4Cm = 256, 104 KB at 128), else 4 (f32 at 4Cm = 256).
@@ -90,10 +91,10 @@ struct Chain {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) s2d_chain(const Chain<T> ch) {
   using Tl = Tile<T, kBN, kBM>;
-  constexpr int BM = kBM, BN = kBN, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC;
-  constexpr int VEC = Tl::VEC, VPR = kBK / VEC, A_VECS = BM * VPR;
-  constexpr int A_ITERS = A_VECS / kThreads, BPR = BN / VEC, B_ITERS = kBK * BPR / kThreads;
-  static_assert(A_VECS % kThreads == 0 && kBK * BPR % kThreads == 0, "tiles split evenly");
+  constexpr int BM = kBM, BN = kBN, BK = Tl::BK, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC;
+  constexpr int VEC = Tl::VEC, VPR = BK / VEC, A_VECS = BM * VPR;
+  constexpr int A_ITERS = A_VECS / kThreads, BPR = BN / VEC, B_ITERS = BK * BPR / kThreads;
+  static_assert(A_VECS % kThreads == 0 && BK * BPR % kThreads == 0, "tiles split evenly");
   static_assert(kThreads % VPR == 0, "a thread's A vectors share one k-offset");
   union Pack {
     uint4 u;
@@ -128,8 +129,8 @@ __global__ void __launch_bounds__(kThreads, 1) s2d_chain(const Chain<T> ch) {
     const int src_side = first ? P : side + 2;
     const T* region_in = first ? nullptr : regions[(s - 1) & 1];
     T* region_out = last ? nullptr : regions[s & 1];
-    const int kt0 = st.c4[0] * 4 / kBK;
-    const int kt_total = kt0 + (st.n_ops > 1 ? st.c4[1] * 4 / kBK : 0);
+    const int kt0 = st.c4[0] * 4 / BK;
+    const int kt_total = kt0 + (st.n_ops > 1 ? st.c4[1] * 4 / BK : 0);
 
     for (int m0 = 0; m0 < M; m0 += BM) {
       // This thread's A rows: the tap origin of each, or -1 for a row that
@@ -145,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 1) s2d_chain(const Chain<T> ch) {
 
       for (int n0 = 0; n0 < st.co4; n0 += BN) {
         auto load_tile = [&](int t, int stage) {
-          const int o = t < kt0 ? 0 : 1, k0 = (t < kt0 ? t : t - kt0) * kBK;
+          const int o = t < kt0 ? 0 : 1, k0 = (t < kt0 ? t : t - kt0) * BK;
           const int c4 = st.c4[o], c = c4 / 4, k = k0 + a_kv;
           const int tap = k / c4, rem = k - tap * c4, dst = rem / c, chn = rem - dst * c;
           const int dy = (tap >> 1) + (dst >> 1), dx = (tap & 1) + (dst & 1);

@@ -35,10 +35,11 @@
 // (conv3x3_s2d_fused_head) rounds the relu output to bf16 and, from shared
 // memory too, applies the 1x1 head, its bias and tanh in place of the
 // store. Every launch also writes the zero ring of its padded outputs.
-// Each output element sums its k-products in one fixed order (k-tiles of
-// 32 in order, 16 a wmma step; one FMA a product for f32), whatever the
-// tile shape, so the chained kernels of chain_kernels.cu, which reuse Mma
-// with other tiles, reproduce these kernels bit for bit.
+// Each output element sums its k-products in one fixed order (bf16: k-tiles
+// of 32 in order, 16 a wmma step; f32: one FMA a product, in k order, from
+// 0), whatever the tile shape, so the chained kernels of chain_kernels.cu
+// and the window kernels of window_kernels.cu, which reuse Mma with other
+// tiles, reproduce these kernels bit for bit.
 //
 // Operands reach shared memory through a 3-stage cp.async pipeline of
 // 16-byte copies (zero-filled past the edges), so the gather of k-tile t+2
@@ -46,12 +47,28 @@
 // channels (C for the 3x3 gathers and the deconv, 4C for the 5x5) and 4Co to
 // be whole 16-byte vectors, and 16-byte aligned planes, which the wrappers
 // check. Outputs of at most 64 channels take 256 x 64 block tiles, wider
-// ones 128 x 128 (64 x 256 for the pooled launch with 4Co = 256).
+// ones 128 x 128 (64 x 256 for the pooled launch with 4Co = 256); f32 blocks
+// take twice those rows.
+//
+// The f32 mainloop (Mma<float>) gives each thread a 16 x 8 register tile
+// (the lanes of a warp 4 x 8 over 64 x 64 outputs; block tiles 512 x 64,
+// 256 x 128 or 128 x 256, twice the bf16 rows) and reads both operands from
+// shared memory as float4: A along k (4 k a load, as the gather stores it),
+// B as 4 contiguous columns of a row: a 4-deep step is 24 loads for 512
+// FMAs. Its k-tiles are 16 deep, so the three stages of every tile fit
+// beside one block's 255 registers a thread: one block of 8 warps an SM. On the H100 that ran faster than two
+// blocks of 8 x 8 tiles (16 warps, 128 registers, 32 loads for 512 FMAs):
+// a 128-bit shared load takes four passes of the shared-memory pipe
+// whatever it broadcasts, so the loop is bound by those passes and by
+// instruction issue (~2,430 instructions a k-tile for 2,048 FMAs), not by
+// latency.
 //
 // Bound: at the generator's shapes the GEMMs do ~300 FLOP per byte of their
 // planes, near the H100's bf16 ridge; the critic's 5x5 levels (K = 144 to
-// 1152, 4Co = 16 to 128) sit below it. This version has no wgmma or TMA, so
-// it stays well below both roofs (PERF.md).
+// 1152, 4Co = 16 to 128) sit below it. In f32 every shape is above the
+// 20 FLOP/B ridge of the CUDA cores (67 TFLOP/s FMA, 3.35 TB/s), so the f32
+// engine is bound by its shared-memory passes and FMA issue; the bf16
+// engine has no wgmma or TMA and stays well below both roofs (PERF.md).
 //
 // A Phase template argument splits the kernel for timing (the counterpart
 // of scripts/kernel_anatomy.py's variants, P1). Its default, kProduction, is
@@ -86,7 +103,7 @@ enum Phase : int {
 };
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kBK = 32;        // GEMM depth of one shared-memory k-tile
+constexpr int kBK = 32;        // GEMM depth of one bf16 shared-memory k-tile
 constexpr int kStages = 3;     // k-tiles in flight
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -147,17 +164,28 @@ struct ProbeProblem : Problem<T> {
 template <typename T, int PHASE>
 using PhaseProblem = std::conditional_t<PHASE == kProduction, Problem<T>, ProbeProblem<T>>;
 
-// The engine's blocks own 256 x 64, 128 x 128 or 64 x 256 outputs; the
-// chained kernels take 64 x 128.
-template <typename T, int BN, int BM_ = 16384 / BN>
+// The engine's bf16 blocks own 256 x 64, 128 x 128 or 64 x 256 outputs, its
+// f32 blocks twice the rows; the chained kernels take 64 x 128 and the f32
+// window kernels 128 x BN. bf16 k-tiles are kBK deep; f32 ones 16, so that
+// three stages of the 512 x 64 tile take 132 KB. In f32 the depth of a
+// k-tile does not change a bit: every product is one FMA in k order.
+// Outputs of one engine block: 16 a thread in bf16, 128 in f32.
+template <typename T>
+constexpr int kBlockOutputs = std::is_same_v<T, float> ? 32768 : 16384;
+
+template <typename T, int BN, int BM_ = kBlockOutputs<T> / BN>
 struct Tile {
+  static constexpr bool F32 = std::is_same_v<T, float>;
   static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte copy
   static constexpr int BM = BM_;
-  static constexpr int LDA = kBK + 8;    // As[m][k]
-  static constexpr int LDB = BN + 8;     // Bs[k][n]
-  static constexpr int LDC = BN + 4;     // Cs[m][n], f32, aliases the stages
-  static constexpr int WM = BM / 2, WN = BN / 4;  // warp tile: 8 warps as 2 x 4
-  static constexpr int kStageElems = BM * LDA + kBK * LDB;
+  static constexpr int BK = F32 ? 16 : kBK;
+  // As[m][k]; in f32 the float4 reads of four consecutive rows at one k fall
+  // in distinct banks (rows 20 words apart).
+  static constexpr int LDA = BK + (F32 ? 4 : 8);
+  static constexpr int LDB = BN + (F32 ? 0 : 8);  // Bs[k][n]
+  static constexpr int LDC = BN + 4;              // Cs[m][n], f32, aliases the stages
+  static constexpr int WM = BM / 2, WN = BN / 4;  // bf16 warp tile: 8 warps as 2 x 4
+  static constexpr int kStageElems = BM * LDA + BK * LDB;
   static constexpr int kAB = kStages * kStageElems * (int)sizeof(T);
   static constexpr int kC = BM * LDC * (int)sizeof(float);
   static constexpr int kSmem = kAB > kC ? kAB : kC;
@@ -175,15 +203,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename T, int BN, int BM = 16384 / BN> struct Mma;
+template <typename T, int BN, int BM = kBlockOutputs<T> / BN> struct Mma;
 
-// f32: CUDA-core FMAs, TM x 4 outputs a thread, columns strided by TX so a
-// warp reads consecutive Bs words and one broadcast As row.
+// f32: CUDA-core FMAs on a register tile of TM x TN outputs a thread, fed by
+// 128-bit shared loads. The 8 warps are WY x WX over the block tile; a warp's
+// lanes are LY x LX, and lane (ly, lx) owns rows ly + i LY (i < TM) and the
+// four-column groups 4 lx + 4 LX h (h < TN / 4) of its warp's tile. Each
+// 4-deep step loads the thread's B groups at the 4 k (a quarter-warp reads
+// 128 contiguous bytes of one Bs row), then row by row a float4 of A at the
+// 4 k (a quarter-warp's lanes read one address, a warp's LY rows fall in
+// distinct banks), and issues 4 TM TN FMAs: TM + 2 TN loads for them, 24
+// for 512 at the engine's 16 x 8 tile. Each output adds its products one
+// fmaf each in k order, from 0, whatever the tile.
 template <int BN, int BM>
 struct Mma<float, BN, BM> {
   using Tl = Tile<float, BN, BM>;
-  static constexpr int TN = 4, TX = BN / TN, TY = kThreads / TX, TM = Tl::BM / TY;
+  static constexpr int LX = BN >= 32 ? 8 : BN / 4, LY = 32 / LX;
+  static constexpr int TN = BN >= 64 ? 8 : 4, H = TN / 4, WTN = LX * TN;
+  static constexpr int WX = BN / WTN, WY = kThreads / 32 / WX, TM = BM / WY / LY;
+  static_assert(WX * WTN == BN && WY * WX * 32 == kThreads && WY * LY * TM == BM,
+                "the warps and lanes must tile the block");
+  static_assert(Tl::BK % 4 == 0, "a k-tile is whole 4-deep steps");
   float acc[TM][TN];
+
+  // The thread's first row and first column in the block tile.
+  __device__ __forceinline__ static int row0() {
+    return threadIdx.x / 32 / WX * (LY * TM) + threadIdx.x % 32 / LX;
+  }
+  __device__ __forceinline__ static int col0() {
+    return threadIdx.x / 32 % WX * WTN + threadIdx.x % LX * 4;
+  }
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -192,26 +241,41 @@ struct Mma<float, BN, BM> {
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   }
   __device__ __forceinline__ void step(const float* As, const float* Bs) {
-    const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-#pragma unroll 4
-    for (int k = 0; k < kBK; ++k) {
-      float a[TM], b[TN];
+    const float* a = As + row0() * Tl::LDA;
+    const float* b = Bs + col0();
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[(ty * TM + i) * Tl::LDA + k];
+    for (int k = 0; k < Tl::BK; k += 4) {
+      float4 bv[4][H];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k * Tl::LDB + tx + j * TX];
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int h = 0; h < H; ++h)
+          bv[kk][h] = *reinterpret_cast<const float4*>(b + (k + kk) * Tl::LDB + h * 4 * LX);
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int i = 0; i < TM; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(a + i * LY * Tl::LDA + k);
+        const float ak[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            float* c = acc[i] + 4 * h;
+            c[0] = fmaf(ak[kk], bv[kk][h].x, c[0]);
+            c[1] = fmaf(ak[kk], bv[kk][h].y, c[1]);
+            c[2] = fmaf(ak[kk], bv[kk][h].z, c[2]);
+            c[3] = fmaf(ak[kk], bv[kk][h].w, c[3]);
+          }
+      }
     }
   }
   __device__ __forceinline__ void store(float* Cs) {
-    const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+    float* c = Cs + row0() * Tl::LDC + col0();
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) Cs[(ty * TM + i) * Tl::LDC + tx + j * TX] = acc[i][j];
+      for (int h = 0; h < H; ++h)
+        *reinterpret_cast<float4*>(c + i * LY * Tl::LDC + h * 4 * LX) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
   }
 };
 
@@ -288,10 +352,13 @@ __device__ __forceinline__ void zero_ring(T* plane, int batch, int side, int ch,
   }
 }
 
+// f32: one block an SM, whose 16 x 8 register tiles take 255 registers.
 template <typename T, int BN, int PHASE = kProduction>
-__global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const PhaseProblem<T, PHASE> pr) {
+__global__ void __launch_bounds__(kThreads, std::is_same_v<T, float> ? 1 : 2)
+    s2d_gemm(const PhaseProblem<T, PHASE> pr) {
   using Tl = Tile<T, BN>;
-  constexpr int BM = Tl::BM, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC, VEC = Tl::VEC;
+  constexpr int BM = Tl::BM, BK = Tl::BK, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC;
+  constexpr int VEC = Tl::VEC;
   extern __shared__ __align__(128) unsigned char smem[];
   T* stages = reinterpret_cast<T*>(smem);
   float* Cs = reinterpret_cast<float*>(smem);
@@ -317,7 +384,7 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const PhaseProblem<T, PH
   // pixel (b, y', x') of the row's tap origin (-1 past M) and the row's
   // channel offset (the deconv's sub-pixel group; 0 for the convs). Both
   // operands of a two-operand conv share the plane geometry.
-  constexpr int VPR = kBK / VEC, A_VECS = BM * VPR;
+  constexpr int VPR = BK / VEC, A_VECS = BM * VPR;
   constexpr int A_ITERS = (A_VECS + kThreads - 1) / kThreads;
   int a_pix[A_ITERS], a_goff[A_ITERS];
 #pragma unroll
@@ -335,12 +402,12 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const PhaseProblem<T, PH
       }
     }
   }
-  constexpr int BPR = BN / VEC, B_ITERS = kBK * BPR / kThreads;
-  static_assert(kBK * BPR % kThreads == 0, "B tile must split evenly over the block");
+  constexpr int BPR = BN / VEC, B_ITERS = BK * BPR / kThreads;
+  static_assert(BK * BPR % kThreads == 0, "B tile must split evenly over the block");
 
   // k-tiles of operand 0, then of operand 1; a tile never spans both.
-  const int kt0 = (pr.op[0].k + kBK - 1) / kBK;
-  const int kt_total = kt0 + (pr.n_ops > 1 ? (pr.op[1].k + kBK - 1) / kBK : 0);
+  const int kt0 = (pr.op[0].k + BK - 1) / BK;
+  const int kt_total = kt0 + (pr.n_ops > 1 ? (pr.op[1].k + BK - 1) / BK : 0);
 
   // Tiles are loaded in order, and a thread's k-offset inside a tile is the
   // same for all its vectors (kThreads is a multiple of VPR), so its gather
@@ -396,13 +463,13 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const PhaseProblem<T, PH
                    ok ? op.w + (int64_t)(k0 + kr) * pr.co4 + col : op.w, ok);
       }
     }
-    cur_k += kBK;
+    cur_k += BK;
     if (pr.gather == kGatherConv3x3) {
-      for (cur_ch += kBK; cur_ch >= c; cur_ch -= c) {
+      for (cur_ch += BK; cur_ch >= c; cur_ch -= c) {
         if (++cur_d == 4) cur_d = 0, ++cur_tap;
       }
     } else if (conv5) {
-      for (cur_ch += kBK; cur_ch >= c; cur_ch -= c) ++cur_d;
+      for (cur_ch += BK; cur_ch >= c; cur_ch -= c) ++cur_d;
     }
   };
 
@@ -463,16 +530,21 @@ __global__ void __launch_bounds__(kThreads, 2) s2d_gemm(const PhaseProblem<T, PH
     // the pooled position.
     __shared__ int64_t row_out[BM], row_trunk[BM], row_pool[BM];
     __shared__ int row_gb[BM];
-    if (tid < BM) {
-      const int64_t m = m0 + tid;
-      row_out[tid] = -1;
+    // One row a thread; two in the f32 512-row tile.
+    constexpr int ROW_ITERS = (BM + kThreads - 1) / kThreads;
+#pragma unroll 1
+    for (int i = 0; i < ROW_ITERS; ++i) {
+      const int r = tid + i * kThreads;
+      if (r >= BM) break;
+      const int64_t m = m0 + r;
+      row_out[r] = -1;
       if (m < M) {
         const int b = (int)(m / nn_img), rem = (int)(m % nn_img), y = rem / n, x = rem % n;
         const int half = n / 2 + 2, cp = pr.co4 / 4;
-        row_out[tid] = (((int64_t)b * side + y + 1) * side + x + 1) * pr.co4;
-        row_trunk[tid] = (((int64_t)b * pr.p_in + y + 1) * pr.p_in + x + 1) * pr.op[0].c4;
-        row_gb[tid] = b * pr.co4;
-        row_pool[tid] = pr.pool == kPoolPixel
+        row_out[r] = (((int64_t)b * side + y + 1) * side + x + 1) * pr.co4;
+        row_trunk[r] = (((int64_t)b * pr.p_in + y + 1) * pr.p_in + x + 1) * pr.op[0].c4;
+        row_gb[r] = b * pr.co4;
+        row_pool[r] = pr.pool == kPoolPixel
                             ? (((int64_t)b * n + y) * n + x) * cp
                             : (((int64_t)b * half + y / 2 + 1) * half + x / 2 + 1) * pr.co4 +
                                   (2 * (y & 1) + (x & 1)) * cp;

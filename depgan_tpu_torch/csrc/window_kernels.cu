@@ -156,9 +156,9 @@ __global__ void __launch_bounds__(kThreads, 2) window_conv(const WinConv<T> p) {
   // the window into the engine's A layout and runs the engine's FMA Mma.
   constexpr bool kDirect = std::is_same_v<T, __nv_bfloat16>;
   using Tl = Tile<T, BN, kWinBM>;
-  constexpr int BM = kWinBM, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC, VEC = Tl::VEC;
-  constexpr int VPR = kBK / VEC, A_ITERS = BM * VPR / kThreads;
-  constexpr int BPR = BN / VEC, B_VECS = kBK * BPR;
+  constexpr int BM = kWinBM, BK = Tl::BK, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC;
+  constexpr int VEC = Tl::VEC, VPR = BK / VEC, A_ITERS = BM * VPR / kThreads;
+  constexpr int BPR = BN / VEC, B_VECS = BK * BPR;
   static_assert(BM * VPR % kThreads == 0, "A tile must split evenly over the block");
   static_assert(kThreads % VPR == 0, "a thread's A vectors share one k-offset");
   using Direct = WinMmaDirect<BN>;
@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 2) window_conv(const WinConv<T> p) {
   T* win = reinterpret_cast<T*>(smem);
   const T* zero16 = reinterpret_cast<const T*>(smem + p.win_bytes - 16);  // k past the depth
   T* abuf = reinterpret_cast<T*>(smem + p.win_bytes);  // 2 x BM x LDA (f32 only)
-  T* bst = abuf + (kDirect ? 0 : 2 * BM * LDA);          // kStages x kBK x LDB
+  T* bst = abuf + (kDirect ? 0 : 2 * BM * LDA);          // kStages x BK x LDB
   float* Cs = reinterpret_cast<float*>(smem + p.win_bytes);  // aliases abuf and bst
 
   const int tid = threadIdx.x, n = p.n, P = n + 2, c4 = p.c4, W = p.cols, S = p.rows + 2;
@@ -205,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, 2) window_conv(const WinConv<T> p) {
     if (x0 + xw == n) zero_rect(ya + 1, yb + 1, n + 1, n + 2);
   }
 
-  const int kt_total = (p.k + kBK - 1) / kBK;
+  const int kt_total = (p.k + BK - 1) / BK;
   const int vpp = c4 / VEC;  // 16-byte vectors a pixel
   // The window offset (dy, dx, channel) of GEMM depth k: k = (tap, dst, c)
   // over 4 taps for the 3x3 gather (tap = 2A+B reads group 3-dst at offset
@@ -258,8 +258,8 @@ __global__ void __launch_bounds__(kThreads, 2) window_conv(const WinConv<T> p) {
 
     for (int n0 = nc_lo; n0 < nc_hi; n0 += BN) {
       auto load_b = [&](int t, int stage) {
-        T* Bs = bst + stage * kBK * LDB;
-        const int k0 = t * kBK;
+        T* Bs = bst + stage * BK * LDB;
+        const int k0 = t * BK;
         for (int v = tid; v < B_VECS; v += kThreads) {
           const int kr = v / BPR, col = n0 + (v % BPR) * VEC;
           const bool ok = k0 + kr < p.k && col < p.co4;
@@ -269,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 2) window_conv(const WinConv<T> p) {
       };
       // f32: k-tile t of A copied from the window into the engine's layout.
       auto build_a = [&](int t, T* As) {
-        const int k = t * kBK + (tid % VPR) * VEC;
+        const int k = t * BK + (tid % VPR) * VEC;
         int dy = 0, dx = 0, ch = 0;
         if (k < p.k) decode(k, dy, dx, ch);
 #pragma unroll
@@ -311,12 +311,12 @@ __global__ void __launch_bounds__(kThreads, 2) window_conv(const WinConv<T> p) {
         if constexpr (!kDirect) build_a(t, As);
         cp_async_wait<kStages - 2>();  // B k-tile t has landed ...
         __syncthreads();               // ... for every thread, and k-tile t-1 is consumed
-        const T* Bs = bst + (t % kStages) * kBK * LDB;
+        const T* Bs = bst + (t % kStages) * BK * LDB;
         if constexpr (kDirect) {
 #pragma unroll
-          for (int kk = 0; kk < kBK; kk += 16) {
+          for (int kk = 0; kk < BK; kk += 16) {
             unsigned addr[FM];
-            a_rows(t * kBK + kk, addr);
+            a_rows(t * BK + kk, addr);
             mma.step(addr, Bs + kk * LDB);
           }
         } else {
@@ -358,7 +358,7 @@ cudaError_t launch_window(WinConv<T>& p, cudaStream_t stream) {
   using Tl = Tile<T, BN, kWinBM>;
   constexpr bool direct = std::is_same_v<T, __nv_bfloat16>;
   constexpr int staging =
-      ((direct ? 0 : 2 * kWinBM * Tl::LDA) + kStages * kBK * Tl::LDB) * (int)sizeof(T);
+      ((direct ? 0 : 2 * kWinBM * Tl::LDA) + kStages * Tl::BK * Tl::LDB) * (int)sizeof(T);
   constexpr int cs = kWinBM * Tl::LDC * (int)sizeof(float);
   constexpr int64_t rest = staging > cs ? staging : cs;
   // bf16: pixels 16 bytes apart from a multiple of 128, so ldmatrix's eight

@@ -48,14 +48,22 @@ ANATOMY_PHASES = {"full": 1, "no_epi": 2, "matmul_only": 3, "stage_only": 4}
 DEINT_KINDS = {"reshape_idx": 0, "merge": 1}
 
 
+def engine_tile_rows(co4: int, dtype: torch.dtype) -> int:
+    """GEMM rows of the engine's block tile for an unpooled conv to 4Co
+    (``launch`` in ``csrc/s2d_gemm.cuh``): 256 where 4Co <= 64, else 128,
+    twice those in float32."""
+    rows = 256 if co4 <= 64 else 128
+    return 2 * rows if dtype == torch.float32 else rows
+
+
 def stage_tile_rows(co4: int, dtype: torch.dtype, n: int, c4: int) -> int:
     """GEMM rows of the tile over which P1's stage_only sums, for a 3x3 conv
     of 4C -> 4Co at interior side n: in bfloat16 the wgmma mainloop's bm
-    (``wgmma_plan.geometry``), in float32 the engine's block tile (``launch``
-    in ``csrc/s2d_gemm.cuh``: 256 rows where 4Co <= 64, else 128)."""
+    (``wgmma_plan.geometry``), in float32 the engine's block tile
+    (``engine_tile_rows``)."""
     if dtype == torch.bfloat16:
         return W.geometry(n, (c4,), co4)[1]
-    return 256 if co4 <= 64 else 128
+    return engine_tile_rows(co4, dtype)
 
 
 def gathered_taps(x_padded: torch.Tensor) -> torch.Tensor:
@@ -110,7 +118,7 @@ def _anatomy_launch(phase, x_padded, w4, bias4, reps, a_dense, engine: bool):
                f"kernel_anatomy: the mainloop's phases take 4Co <= 128 in bfloat16, got {co4}")
     out = sums = None
     if phase == "stage_only":
-        rows = stage_tile_rows(co4, dt if wgmma else torch.float32, n, c4)
+        rows = stage_tile_rows(co4, dt, n, c4) if wgmma else engine_tile_rows(co4, dt)
         sums = torch.empty(-(-b * n * n // rows), dtype=torch.float32, device=dev)
     else:
         out = torch.empty((b, n + 2, n + 2, co4), dtype=dt, device=dev)

@@ -102,12 +102,48 @@ def _case(kind, a, dtype, device, seed=0):
             {"mode": mode})
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_matches_plain(cuda, case, dtype):
-    dt = getattr(torch, dtype)
-    kind, args = CASES[case]
+# The float32 engine at every shape a float32 superstep launches (batch 2 of
+# its 16): K1 relu and film at the generator's sites, K1 none at the dX of
+# its backward, K3 at the decoder's two-operand convs, K4 at p2 -> p1 and K7
+# at the critics' four 5x5 levels and their transposes; and the pooled
+# conv_out. 4Co <= 64 takes the 256 x 64 block tile, wider outputs 128 x 128
+# (64 x 256 pooled at 4Co = 256). The ragged cases have GEMM rows that are not
+# a whole number of block tiles, at each tile.
+SUPERSTEP_F32 = {
+    "k1_relu_l1_32_128": ("fused", dict(b=2, n=128, c4=32, co4=128)),
+    "k1_relu_l1_128_128": ("fused", dict(b=2, n=128, c4=128, co4=128)),
+    "k1_relu_l2_128_256": ("fused", dict(b=2, n=64, c4=128, co4=256)),
+    "k1_relu_l2_256_256": ("fused", dict(b=2, n=64, c4=256, co4=256)),
+    "k1_film_l1_128": ("fused", dict(b=2, n=128, c4=128, co4=128, film=True)),
+    "k1_film_l2_256": ("fused", dict(b=2, n=64, c4=256, co4=256, film=True)),
+    "k1_none_l1_128_128": ("fused", dict(b=2, n=128, c4=128, co4=128, mode="none")),
+    "k1_none_p1_128_256": ("fused", dict(b=2, n=128, c4=128, co4=256, mode="none")),
+    "k1_none_l2_256_128": ("fused", dict(b=2, n=64, c4=256, co4=128, mode="none")),
+    "k1_none_l2_256_256": ("fused", dict(b=2, n=64, c4=256, co4=256, mode="none")),
+    "k1_none_p2_256_384": ("fused", dict(b=2, n=64, c4=256, co4=384, mode="none")),
+    "k3_p2_384_256": ("fused2", dict(b=2, n=64, c4=384, c4b=256, co4=256)),
+    "k3_p1_256_128": ("fused2", dict(b=2, n=128, c4=256, c4b=128, co4=128)),
+    "k4_p2_p1_256": ("deconv", dict(b=2, n=128, c4=256, co4=256)),
+    "k7_relu_l0a_16_64": ("conv5", dict(b=2, n=128, c4=16, co4=64, mode="relu")),
+    "k7_relu_l0b_64_64": ("conv5", dict(b=2, n=128, c4=64, co4=64, mode="relu")),
+    "k7_relu_l1a_64_128": ("conv5", dict(b=2, n=64, c4=64, co4=128, mode="relu")),
+    "k7_relu_l1b_128_128": ("conv5", dict(b=2, n=64, c4=128, co4=128, mode="relu")),
+    "k7_none_l0a_64_16": ("conv5", dict(b=2, n=128, c4=64, co4=16, mode="none")),
+    "k7_none_l0b_64_64": ("conv5", dict(b=2, n=128, c4=64, co4=64, mode="none")),
+    "k7_none_l1a_128_64": ("conv5", dict(b=2, n=64, c4=128, co4=64, mode="none")),
+    "k7_none_l1b_128_128": ("conv5", dict(b=2, n=64, c4=128, co4=128, mode="none")),
+    "k2_pool_s2d_l1_128": ("fused", dict(b=2, n=128, c4=128, co4=128, pool="s2d")),
+    "k2_pool_pixel_l2_256": ("fused", dict(b=2, n=64, c4=256, co4=256, pool="pixel")),
+    "ragged_k1_relu_tile_256x64": ("fused", dict(b=2, n=13, c4=128, co4=64)),
+    "ragged_k3_tile_128x128": ("fused2", dict(b=3, n=11, c4=256, c4b=128, co4=128)),
+    "ragged_k7_none_tile_256x64": ("conv5", dict(b=2, n=13, c4=64, co4=16, mode="none")),
+    "ragged_k2_pool_tile_64x256": ("fused", dict(b=2, n=10, c4=32, co4=256, pool="s2d")),
+}
+
+
+def _check_kernel_case(kind, args, dt, cuda):
+    """One launch against the plain version (atol = rtol = TOL), counted
+    once, its padded planes' rings exactly zero."""
     name, kernel, plain, inputs, kwargs = _case(kind, args, dt, cuda)
     before = K.launches()[name]
     out = kernel(*inputs, **kwargs)
@@ -125,6 +161,23 @@ def test_kernel_matches_plain(cuda, case, dtype):
             ring = torch.ones(o.shape[1:3], dtype=torch.bool, device=cuda)
             ring[1:n + 1, 1:n + 1] = False
             assert not o[:, ring].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain(cuda, case, dtype):
+    kind, args = CASES[case]
+    _check_kernel_case(kind, args, getattr(torch, dtype), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SUPERSTEP_F32))
+def test_float32_engine_at_superstep_shapes(cuda, case):
+    """The float32 engine's register-tiled mainloop at the superstep's
+    shapes and both tile widths, ragged GEMM rows included."""
+    kind, args = SUPERSTEP_F32[case]
+    _check_kernel_case(kind, args, torch.float32, cuda)
 
 
 @pytest.mark.gpu

@@ -102,7 +102,7 @@ def test_stage_only_sums_follow_the_route_tile(dtype):
     x = K.pad_s2d(torch.randn(3, n, n, c4)).to(dtype)
     w4, bias = torch.randn(2, 2, c4, co4).to(dtype), torch.randn(co4)
     rows = probes.stage_tile_rows(co4, dtype, n, c4)
-    want = W.geometry(n, (c4,), co4)[1] if dtype == torch.bfloat16 else 128
+    want = W.geometry(n, (c4,), co4)[1] if dtype == torch.bfloat16 else 256
     assert rows == want
     for n2, c42, co42 in ((8, 128, 40), (16, 128, 128), (64, 128, 128), (128, 128, 128)):
         if dtype == torch.bfloat16:
