@@ -13,6 +13,12 @@ could carry: half of each batch left out (the mean over the rest) and a
 state left unchanged: the upper readings. Prints one JSON line a reading.
 Not run by the benchmark's own runs.
 
+``--tf32 on`` turns TF32 on in cuDNN and in matmul for the whole run (the
+program's torch products too), and the control becomes the reference with
+TF32 in both (precision ``tf32``): what a float32 cell's numbers read when
+every product runs on the TF32 tensor cores, which the float32 mixes admit
+(``"products": "tf32"``; their control stays bfloat16).
+
 ``--look`` (training cells) asks where a gap comes from instead: for each
 seed of ``--seeds`` it reads the program against the float32 reference
 and against a float64 one, and the float32 reference against the float64
@@ -29,6 +35,7 @@ import time
 import torch
 
 from portbench import cell as cells
+from portbench.drivers import common
 
 
 KEYS = ("loss_gap", "loss1_gap", "loss0_gap", "grad_gap", "grad_median_gap", "change_gap",
@@ -39,13 +46,13 @@ def _print(**row):
     print(json.dumps(row), flush=True)
 
 
-def serving(cell, seeds, control_seeds, seconds, device):
+def serving(cell, seeds, control_seeds, seconds, device, control):
     from portbench.drivers import serve
 
-    control = cell.limits["control"]
     for seed in seeds:
         out = serve.run(cell, seed, seconds, False, device, time.perf_counter())
-        _print(kind="program", seed=seed, max_abs_gap=out["compared"][0][1],
+        _print(kind="program", seed=seed, tf32=torch.backends.cudnn.allow_tf32,
+               max_abs_gap=out["compared"][0][1],
                slices_per_s=out["end_to_end"]["subject_slices_per_s"])
         if seed in control_seeds:
             _print(kind=f"control {control}", seed=seed, max_abs_gap=out["control"](control))
@@ -53,12 +60,11 @@ def serving(cell, seeds, control_seeds, seconds, device):
         _empty_cache(device)
 
 
-def training(cell, seeds, control_seeds, device):
+def training(cell, seeds, control_seeds, device, control):
     from portbench.drivers import gan_train, uresnet_train
 
     gan = cell.traffic["driver"] == "gan_train"
     mod = gan_train if gan else uresnet_train
-    control = cell.limits["control"]
     dev = torch.device(device)
     for seed in seeds:
         run_ = mod.first_steps(cell, seed, dev, 3)
@@ -75,7 +81,8 @@ def training(cell, seeds, control_seeds, device):
 
         want = ref()
         got = mod.readings(prog, want, init)
-        _print(kind="program", seed=seed, **{k: got[k] for k in KEYS})
+        _print(kind="program", seed=seed, tf32=torch.backends.cudnn.allow_tf32,
+               **{k: got[k] for k in KEYS})
         if seed in control_seeds:
             for kind, kw in ((f"control {control}", {"precision": control}),
                              ("fault half batch", {"half_batch": True})):
@@ -152,20 +159,25 @@ def main(argv=None):
     p.add_argument("--control-seeds", type=int, nargs="*", default=[])
     p.add_argument("--seconds", type=float, default=5.0)
     p.add_argument("--device", default="cuda", help="cpu: a rehearsal of the tool's paths")
-    p.add_argument("--tf32", choices=("default", "off"), default="default",
-                   help="off: the program's cuDNN convolutions without TF32 (a look at a cause)")
+    p.add_argument("--tf32", choices=("default", "off", "on"), default="default",
+                   help="off: the program's cuDNN convolutions without TF32 (a look at a cause); "
+                        "on: TF32 in cuDNN and matmul, and the TF32 reference as the control")
     p.add_argument("--look", action="store_true",
                    help="training: where the gaps come from (float32 and float64 references)")
     args = p.parse_args(argv)
     cell = cells.load(args.workload)
+    common.set_products(cell)
     if args.tf32 == "off":
         torch.backends.cudnn.allow_tf32 = False
+    elif args.tf32 == "on":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    control = "tf32" if args.tf32 == "on" else cell.limits["control"]
     if args.look:
         look(cell, args.seeds, args.device)
     elif cell.traffic["driver"] == "serve":
-        serving(cell, args.seeds, set(args.control_seeds), args.seconds, args.device)
+        serving(cell, args.seeds, set(args.control_seeds), args.seconds, args.device, control)
     else:
-        training(cell, args.seeds, set(args.control_seeds), args.device)
+        training(cell, args.seeds, set(args.control_seeds), args.device, control)
 
 
 if __name__ == "__main__":

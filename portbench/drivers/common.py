@@ -1,12 +1,13 @@
 """What the drivers share: the program's model configuration of a cell, the
-generator's weights made from the seed, and a wait for the device."""
+precision of its products, the generator's weights made from the seed, and
+a wait for the device."""
 
 from __future__ import annotations
 
 import torch
 
 from portbench.reference import nets
-from portbench.yardstick import compare, weights
+from portbench.yardstick import weights
 
 
 def model_config(cell):
@@ -22,6 +23,20 @@ def model_config(cell):
                        use_pallas=tr["use_pallas"])
 
 
+def set_products(cell) -> None:
+    """Sets the program's products to the precision the mix states. A
+    float32 mix states ``"products": "tf32"``: float32 storage, the cuDNN
+    convolutions' products in TF32 on the tensor cores (``cudnn.allow_tf32``,
+    torch's default), matmul at torch's default. The float32 peak of
+    ``yardstick/model.py`` and the cells' bfloat16 control stand on it."""
+    tr = cell.traffic
+    if tr["compute_dtype"] != "float32":
+        return
+    if tr.get("products") != "tf32":
+        raise ValueError(f"mix {cell.traffic_name}: a float32 mix states \"products\": \"tf32\"")
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def generator_weights(cell, seed: int, device, x: torch.Tensor):
     """Generator parameters and statistics from the seed, the head
     calibrated over ``x`` with the reference."""
@@ -30,9 +45,9 @@ def generator_weights(cell, seed: int, device, x: torch.Tensor):
     params, stats = weights.split(weights.make(spec, seed, device), spec)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     z = torch.randn((x.shape[0], cfg["noise_size"], 1), generator=gen, device=device)
-    logits = []
-    with torch.no_grad(), compare.exact_float32():
-        nets.generator(params, stats, cfg, x, z, nets.Precision(), head_hook=logits.append)
+    logits, prec = [], nets.Precision()
+    with torch.no_grad(), prec.products():
+        nets.generator(params, stats, cfg, x, z, prec, head_hook=logits.append)
     weights.calibrate_head(params, logits[0])
     return params, stats
 

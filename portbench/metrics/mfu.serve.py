@@ -1,7 +1,8 @@
 """The model FLOPs of the slice-forwards in the traced window
 (``yardstick/model.py`` ``generator_flops``) over the window's seconds and
-the peak of the cell's dtype (989 TFLOP/s bf16, 67 TFLOP/s float32).
-Layer: the whole serving step. Moves ``subject_slices_per_s``."""
+the peak of the cell's dtype (989 TFLOP/s bf16, 495 TFLOP/s float32, whose
+mixes state TF32 products). Layer: the whole serving step. Moves
+``subject_slices_per_s``."""
 
 from portbench.yardstick import model
 

@@ -1,7 +1,8 @@
 """The model FLOPs of the supersteps or steps in the traced window
 (``yardstick/model.py``: ``gan_superstep_flops``, ``uresnet_step_flops``)
-over the window's seconds and the peak of the cell's dtype (67 TFLOP/s
-float32). Layer: the whole training step. Moves ``train_slices_per_s``."""
+over the window's seconds and the peak of the cell's dtype (495 TFLOP/s
+float32, whose mixes state TF32 products). Layer: the whole training step.
+Moves ``train_slices_per_s``."""
 
 from portbench.yardstick import model
 

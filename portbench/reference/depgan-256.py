@@ -22,9 +22,7 @@ def serve_ensemble(params, stats, cfg, x, mask, noises, precision: str = "float3
     """Masked mean of ``len(noises)`` generator forwards: x (Z, H, W, C),
     mask (Z, H, W), noises (R, Z, noise_size, 1) -> (Z, H, W, n_out)."""
     prec = nets.Precision(precision)
-    from portbench.yardstick.compare import exact_float32
-
-    with exact_float32():
+    with prec.products():
         total = torch.zeros(x.shape[:3] + (cfg["n_out"],), device=x.device)
         for z in noises:
             total += nets.generator(params, stats, cfg, x, z, prec)[0] * mask[..., None]
@@ -89,12 +87,10 @@ class GanReference:
     def superstep(self, xb, yb, dr: dict, n_valid: int) -> dict:
         """One superstep on the (D, B) batches ``xb``, ``yb``; returns its
         losses: each critic row's real and fake score, and errG."""
-        from portbench.yardstick.compare import exact_float32
-
         r = self.rows
         xb, yb = xb[:, :r], yb[:, :r]
         losses = {}
-        with exact_float32():
+        with self.prec.products():
             for which in ("y2", "dem"):
                 params, crit = self.critics[which], self.critic_fn(which)
                 noises, eps = dr[f"noises_{which}"][:, :r], dr[f"eps_{which}"][:, :r]

@@ -42,14 +42,12 @@ class UResNetReference:
 
     def step(self, x, y, noise, gen: torch.Generator) -> float:
         """One batch update; returns its loss."""
-        from portbench.yardstick.compare import exact_float32
-
         masks = self.dropout_masks(x.shape[0], gen, x.device)
         if self.half:
             r = x.shape[0] // 2
             x, y, noise = x[:r], y[:r], noise[:r]
             masks = {k: v[:r] for k, v in masks.items()}
-        with exact_float32():
+        with self.prec.products():
             probs, updated = nets.generator(self.params, self.stats, self.cfg, x, noise,
                                             self.prec, train=True, masks=masks)
             loss = -(y * torch.log(probs.clamp(1e-7, 1.0))).sum(-1).mean()

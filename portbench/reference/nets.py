@@ -12,12 +12,15 @@ Parameters are flat dicts keyed by the Keras layer path, the names the
 benchmark uses for its weights (``block_gen_0.conv2d_gen_0.kernel``).
 Nothing here imports the program under test. ``Precision`` sets how the
 products are computed: ``float32`` (the reference), ``bfloat16`` (the
-trunk stored and multiplied in bfloat16, as a bf16 program would) or
-``fp8`` (every product's operands rounded to float8 e4m3 with one scale a
-tensor, accumulated in float32): the last two are the controls.
+trunk stored and multiplied in bfloat16, as a bf16 program would), ``fp8``
+(every product's operands rounded to float8 e4m3 with one scale a tensor,
+accumulated in float32) or ``tf32`` (float32 with cuDNN's and matmul's
+TF32 on): the last three are controls.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -125,12 +128,13 @@ def critic_spec(cfg: dict) -> list[tuple[str, tuple[int, ...], str]]:
 # ------------------------------------------------------------- precision
 
 class Precision:
-    """How products are computed: 'float32', 'bfloat16' or 'fp8'; or
-    'float64', a look at what float32's rounding does (``calibrate --look``),
-    which wants the parameters in float64 too (``wide``)."""
+    """How products are computed: 'float32', 'bfloat16', 'fp8' or 'tf32'
+    (float32 operands, TF32 products); or 'float64', a look at what
+    float32's rounding does (``calibrate --look``), which wants the
+    parameters in float64 too (``wide``)."""
 
     def __init__(self, name: str = "float32"):
-        if name not in ("float32", "bfloat16", "fp8", "float64"):
+        if name not in ("float32", "bfloat16", "fp8", "tf32", "float64"):
             raise ValueError(f"unknown precision {name!r}")
         self.name = name
         self.store = {"bfloat16": torch.bfloat16, "float64": torch.float64}.get(name,
@@ -150,6 +154,18 @@ class Precision:
             q = (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
             return t + (q - t).detach()  # rounded forward, straight-through gradient
         return t.to(self.store)
+
+    @contextlib.contextmanager
+    def products(self):
+        """cuDNN's and matmul's TF32 on for 'tf32' and off for the rest,
+        put back as they were on leaving."""
+        cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = \
+            self.name == "tf32"
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:

@@ -73,6 +73,9 @@ def main(argv=None, device: str = "cuda", t_start: float | None = None, cell=Non
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} found",
               file=sys.stderr)
         return 2
+    from portbench.drivers import common
+
+    common.set_products(cell)
     if device == "cuda":
         print(f"card: {_power_limit()}; torch {torch.__version__} cuda {torch.version.cuda}; "
               f"tf32 cudnn {torch.backends.cudnn.allow_tf32} "

@@ -42,3 +42,18 @@ def test_serving_control_reads_far_above_the_program():
     program = out["compared"][0][1]
     control = out["control"](cell.limits["control"])
     assert control > 3 * program and control > cell.limits["max_abs_gap"]["limit"]
+
+
+def test_tf32_control_turns_tf32_on_in_cudnn_and_matmul_and_restores():
+    from portbench.reference import nets
+
+    flags = lambda: (torch.backends.cudnn.allow_tf32,  # noqa: E731
+                     torch.backends.cuda.matmul.allow_tf32)
+    before = flags()
+    assert nets.Precision("tf32").operand(torch.ones(2)).dtype == torch.float32
+    with nets.Precision("tf32").products():
+        assert flags() == (True, True)
+        with nets.Precision().products():
+            assert flags() == (False, False)
+        assert flags() == (True, True)
+    assert flags() == before

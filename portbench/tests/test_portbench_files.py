@@ -4,10 +4,12 @@ program's)."""
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 
 import pytest
+import torch
 
 from portbench import cell as cells
 
@@ -53,6 +55,24 @@ def test_benchmark_keeps_to_its_contract():
     for m in BENCH["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+
+
+def test_float32_mixes_state_the_tf32_products_their_peak_stands_on():
+    from portbench.drivers import common
+
+    f32 = [c for c in (cells.load(w["name"]) for w in BENCH["workloads"])
+           if c.traffic["compute_dtype"] == "float32"]
+    assert f32 and all(c.traffic["products"] == "tf32" for c in f32)
+    cell, before = copy.deepcopy(f32[0]), torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        common.set_products(cell)
+        assert torch.backends.cudnn.allow_tf32
+        del cell.traffic["products"]
+        with pytest.raises(ValueError, match="tf32"):
+            common.set_products(cell)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 @pytest.mark.parametrize("config", ["depgan-256", "depuresnet-256"])

@@ -117,3 +117,16 @@ def test_norm_gaps_take_the_worst_leaf_against_the_larger_norm():
     assert compare.moving_leaves(ref) == {"a", "c"}  # b is under a thousandth of the median
     loss, at = compare.loss_gap([{"x": 1.0, "y": 0.0011}], [{"x": 1.0, "y": 0.001}])
     assert at == "step 1 y" and loss == pytest.approx(1e-4 / 0.5005)
+
+
+@pytest.mark.parametrize("dtype, peak", [("float32", 495e12), ("bfloat16", 989e12)])
+def test_shares_reach_100_at_the_dtypes_peak(dtype, peak):
+    """The fastest rate a cell's FLOPs may run at: bf16's tensor-core peak,
+    and for float32 cells, whose mixes state TF32 products, the TF32
+    tensor-core peak (not the 67 TFLOP/s outside the tensor cores)."""
+    assert model.PEAK_FLOPS[dtype] == peak
+    forwards = 4200
+    flops = forwards * model.generator_flops(CFG)
+    ctx = SimpleNamespace(trace=_trace([], t1=round(flops / peak * 1e9)), config=CFG,
+                          dtype=dtype, slice_forwards=forwards)
+    assert cells.metric_reader("mfu.serve")(ctx) == pytest.approx(100.0, rel=1e-6)

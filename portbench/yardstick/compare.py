@@ -16,23 +16,9 @@ change. A cell compares the numbers its limits file names.
 
 from __future__ import annotations
 
-import contextlib
 import statistics
 
-import torch
-
 EXCLUDE_BELOW = 1e-3  # of the median leaf's gradient norm
-
-
-@contextlib.contextmanager
-def exact_float32():
-    """float32 products without TF32, for the reference."""
-    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
 
 
 def loss_gap(prog: list[dict], ref: list[dict]) -> tuple[float, str]:

@@ -25,8 +25,13 @@ CRITIC = (("dis_0a", 16, 5), ("dis_0b", 16, 5), None, ("dis_1a", 32, 5), ("dis_1
           ("dis_5", 128, 3), None, ("dis_6", 256, 3), ("dis_7", 256, 3), ("dis_8", 256, 3))
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-# Dense, no sparsity; float32 outside the tensor cores.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Dense, no sparsity. float32 is float32 storage with TF32 products, as every
+# float32 mix states ("products": "tf32", set by drivers/common.set_products):
+# their cuDNN convolutions run on the TF32 tensor cores, and their control is
+# bfloat16, the next precision below. So the TF32 rate, 495 TFLOP/s, not the
+# 67 TFLOP/s of float32 outside the tensor cores, is the fastest any of their
+# FLOPs may run, and no share against it can pass 100%.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 
 
 def conv_flops(side: int, cin: int, cout: int, k: int) -> float:
