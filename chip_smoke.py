@@ -38,8 +38,9 @@
    on the same inputs bit for bit; K4 also at the superstep's and the
    serving forward's batches (16, 42).
 3. Serving: the 10-repeat ensemble (``EnsemblePredictor(fast=True)``) over
-   two synthetic 42-slice subjects against the plain float32 generator with
-   the same noise (max abs diff < 0.05), once more with the UResNet softmax
+   two synthetic 42-slice subjects against the plain float32 generator
+   (``GenUNet2D`` on the unfolded weights, ``plain_predictor``) with the
+   same noise (max abs diff < 0.05), once more with the UResNet softmax
    head, and the launch counts of that run: exactly 8, 2, 2 and 1 per
    forward for K1-K4 and no other kernel. 3b. The serving options: a
    full-width bf16 ``FastGenerator`` over one 42-slice batch with
@@ -967,16 +968,31 @@ def randomized_variables(cfg, seed: int) -> dict:
     return variables
 
 
+def plain_predictor(cfg, variables: dict, seed: int):
+    """The plain float32 reference of the serving checks: an ensemble over
+    ``GenUNet2D``'s eval forward on the unfolded weights, so that it shares
+    no BatchNorm fold with the fast generator or with the folded plain
+    generator that ``EnsemblePredictor(fast=False)`` serves."""
+    from depgan_tpu_torch.eval.predict import EnsemblePredictor
+    from depgan_tpu_torch.io.flax_bridge import load_flax_variables
+    from depgan_tpu_torch.models import GenUNet2D
+
+    plain = EnsemblePredictor(cfg, variables, n_repeat=N_REPEAT, seed=seed, fast=False,
+                              device=DEVICE)
+    plain._forward = load_flax_variables(GenUNet2D(cfg, device=DEVICE), variables).eval()
+    return plain
+
+
 def serve(cfg, seed: int, n_subjects: int):
-    """Phase 3: fast ensemble vs the plain float32 generator, same noise.
-    Returns the largest abs diff, the fast predictor and the subjects."""
+    """Phase 3: fast ensemble vs the plain float32 generator (unfolded),
+    same noise. Returns the largest abs diff, the fast predictor and the
+    subjects."""
     from depgan_tpu_torch.eval.predict import EnsemblePredictor
 
     variables = randomized_variables(cfg, seed)
     fast = EnsemblePredictor(cfg, variables, n_repeat=N_REPEAT, seed=seed, fast=True,
                              device=DEVICE)
-    plain = EnsemblePredictor(cfg, variables, n_repeat=N_REPEAT, seed=seed, fast=False,
-                              device=DEVICE)
+    plain = plain_predictor(cfg, variables, seed)
     rng = np.random.default_rng(100 + seed)
     worst, subjects = 0.0, []
     for s in range(n_subjects):
@@ -2523,8 +2539,7 @@ def check_training_path(seed: int, smi: str) -> dict[str, dict[str, int]]:
             out = fast.predict(x, mask)
             launches = K.launches()
             runs["train_to_test"] = launches
-            ref = EnsemblePredictor(serve_cfg, variables, N_REPEAT, seed=seed, fast=False,
-                                    device=DEVICE).predict(x, mask)
+            ref = plain_predictor(serve_cfg, variables, seed).predict(x, mask)
             want = {k: LAUNCHES_PER_FORWARD.get(k, 0) * N_REPEAT for k in KERNELS}
             check(launches == want, f"train -> test launches {launches}, expected {want}")
             diff = float(np.abs(out - ref).max())

@@ -19,7 +19,8 @@ writes the imported tree with ``torch.save`` in place of flax's msgpack.
 at the plain generator's FiLM sites (validation, ``--bn-mode batch``,
 ``train-uresnet``, plain testing); ``--fast`` serves through
 ``FastGenerator`` (folded BN, the s2d kernels, a bfloat16 trunk), without
-it the plain ``GenUNet2D`` runs in ``--bf16``'s dtype. ``--first-fm``
+it ``GenUNet2D``'s eval forward on BN-folded weights (``models/folded.py``)
+runs in ``--bf16``'s dtype. ``--first-fm``
 widths that no kernel takes run their sites' plain versions, with a
 warning (``ops/fast_gen.py``'s width gate). Reading or writing ``.h5``
 weights needs h5py.

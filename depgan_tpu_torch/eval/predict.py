@@ -14,8 +14,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..io.flax_bridge import load_flax_variables
-from ..models.generator import GenUNet2D
+from ..models.folded import FoldedGenerator
 from ..ops.fast_gen import FastGenerator
 from ..utils.profiling import span
 
@@ -25,7 +24,9 @@ class EnsemblePredictor:
 
     ``fast=True`` runs the serving path (``ops.fast_gen.FastGenerator``:
     folded BN, the s2d kernels, trunk in ``compute_dtype``); ``fast=False``
-    runs the plain ``GenUNet2D`` module in ``model_cfg.compute_dtype``.
+    runs ``GenUNet2D``'s eval forward in plain torch and cuDNN, in
+    ``model_cfg.compute_dtype``, on BN-folded weights
+    (``models.folded.FoldedGenerator``).
     Noise comes from a ``torch.Generator`` on ``device`` seeded with
     ``seed``, so two predictors with one seed draw the same noise.
     """
@@ -40,8 +41,7 @@ class EnsemblePredictor:
         if fast:
             self._forward = FastGenerator(model_cfg, variables, compute_dtype, self.device)
         else:
-            module = GenUNet2D(model_cfg, device=self.device)
-            self._forward = load_flax_variables(module, variables).eval()
+            self._forward = FoldedGenerator(model_cfg, variables, self.device)
 
     @torch.no_grad()
     def _ensemble(self, x: torch.Tensor, noises: torch.Tensor, mask: torch.Tensor):

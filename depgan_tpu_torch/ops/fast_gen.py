@@ -153,20 +153,54 @@ def taken_launches(cfg: ModelConfig, taken: dict[str, str]) -> dict[str, int]:
     return counts
 
 
-def _deconv_w2(kernel):
+def deconv_w2(kernel):
     """Keras deconv kernel (2, 2, O, C) -> matmul form (C, 4O), columns in
     sub-pixel order (p, q, o)."""
     return kernel.permute(3, 0, 1, 2).reshape(kernel.shape[3], -1)
 
 
-def _to_tensors(tree, device):
+def to_tensors(tree, device):
     """Float32 tensors of a tree of arrays or tensors; tensors keep their
     autograd history."""
     if isinstance(tree, dict):
-        return {k: _to_tensors(v, device) for k, v in tree.items()}
+        return {k: to_tensors(v, device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(tree), dtype=torch.float32, device=device)
+
+
+def noise_encoder_weights(enc: dict) -> tuple[dict[str, torch.Tensor], dict[str, tuple]]:
+    """The BN-folded noise encoder ``enc`` in the form ``site_mods`` runs:
+    its two shared denses, and the 14 per-site denses, which share their
+    input, as one matmul with columns [mul, add] per site in
+    SITES_IN_ORDER; and each site's (mul, add) column slices."""
+    W: dict[str, torch.Tensor] = {}
+    for name in ("noise_1_add_f0", "noise_1_add_f1"):
+        d = enc[name][f"block_{name}"][f"dense_{name}"]
+        W[f"{name}/kernel"], W[f"{name}/bias"] = d["kernel"], d["bias"]
+    ks, bs, slices, off = [], [], {}, 0
+    for site in SITES_IN_ORDER:
+        pair = []
+        for kind in ("mul", "add"):
+            d = enc[site_suffix(kind, site)][f"dense_{site_suffix(kind, site)}"]
+            ks.append(d["kernel"])
+            bs.append(d["bias"])
+            pair.append(slice(off, off + d["kernel"].shape[-1]))
+            off = pair[-1].stop
+        slices[site] = tuple(pair)
+    W["site_mods/kernel"] = torch.cat(ks, dim=-1)
+    W["site_mods/bias"] = torch.cat(bs, dim=-1)
+    return W, slices
+
+
+def site_mods(W: dict[str, torch.Tensor], z: torch.Tensor, slices: dict[str, tuple]):
+    """The noise pathway on ``noise_encoder_weights``: {site: (gamma, beta)},
+    each (B, C), in the dtype of z and W."""
+    h = z
+    for name in ("noise_1_add_f0", "noise_1_add_f1"):
+        h = torch.relu(h @ W[f"{name}/kernel"] + W[f"{name}/bias"])
+    all_mods = h.reshape(h.shape[0], -1) @ W["site_mods/kernel"] + W["site_mods/bias"]
+    return {site: (all_mods[:, mul], all_mods[:, add]) for site, (mul, add) in slices.items()}
 
 
 class FusedGenerator:
@@ -202,7 +236,7 @@ class FusedGenerator:
         self.fuse_pool = False
         self.fuse_head = False
         self.fuse_chain = False
-        self._site_slices: dict[str, tuple[tuple[int, int], tuple[int, int]]] = {}
+        self._site_slices: dict[str, tuple[slice, slice]] = {}
         # The width gate, decided here from the widths alone (module doc).
         self.routes = site_routes(cfg, compute_dtype, self.backward)
         self.taken: dict[str, str] = {}  # 'site.op' -> the route the last forward ran
@@ -215,28 +249,8 @@ class FusedGenerator:
     def build_weights(self, variables: dict, device=None) -> dict[str, torch.Tensor]:
         """Fold BN, apply the s2d kernel transforms, cast the trunk."""
         dt = self.dtype
-        p = fold_batch_norms(_to_tensors(variables, device))["params"]
-        W: dict[str, torch.Tensor] = {}
-
-        enc = p["noise_encoder"]
-        for name in ("noise_1_add_f0", "noise_1_add_f1"):
-            d = enc[name][f"block_{name}"][f"dense_{name}"]
-            W[f"{name}/kernel"], W[f"{name}/bias"] = d["kernel"], d["bias"]
-        # The 14 per-site denses share their input: one matmul, columns
-        # [mul, add] per site in SITES_IN_ORDER.
-        ks, bs, slices, off = [], [], {}, 0
-        for site in SITES_IN_ORDER:
-            pair = []
-            for kind in ("mul", "add"):
-                d = enc[site_suffix(kind, site)][f"dense_{site_suffix(kind, site)}"]
-                ks.append(d["kernel"])
-                bs.append(d["bias"])
-                pair.append((off, off + d["kernel"].shape[-1]))
-                off = pair[-1][1]
-            slices[site] = tuple(pair)
-        W["site_mods/kernel"] = torch.cat(ks, dim=-1)
-        W["site_mods/bias"] = torch.cat(bs, dim=-1)
-        self._site_slices = slices
+        p = fold_batch_norms(to_tensors(variables, device))["params"]
+        W, self._site_slices = noise_encoder_weights(p["noise_encoder"])
 
         def put_conv(tag, block, lname, level, pad_cin=None, split_cup=None):
             if block.startswith("film_"):  # FilmSite nests its ConvBN one deeper
@@ -265,7 +279,7 @@ class FusedGenerator:
             put_conv(cout, f"block_{cout}", f"conv2d_{cout}", level)
         for site, cin, cout, level, deconv in self.dec_spec:
             d = p[f"block_{deconv}"][f"deconv2d_{deconv}"]
-            W[f"{deconv}/w2"] = _deconv_w2(d["kernel"]).to(dt)
+            W[f"{deconv}/w2"] = deconv_w2(d["kernel"]).to(dt)
             W[f"{deconv}/bias4"] = d["bias"].to(dt).repeat(4)
             put_conv(cin, f"block_{cin}", f"conv2d_{cin}", level,
                      split_cup=d["kernel"].shape[2])
@@ -278,15 +292,6 @@ class FusedGenerator:
         return {k: v.contiguous() for k, v in W.items()}
 
     # ------------------------------------------------------------- forward
-
-    def _site_mods(self, W, z):
-        """Noise pathway: {site: (gamma, beta)}, float32."""
-        h = z
-        for name in ("noise_1_add_f0", "noise_1_add_f1"):
-            h = torch.relu(h @ W[f"{name}/kernel"] + W[f"{name}/bias"])
-        all_mods = h.reshape(h.shape[0], -1) @ W["site_mods/kernel"] + W["site_mods/bias"]
-        return {site: (all_mods[:, m0:m1], all_mods[:, a0:a1])
-                for site, ((m0, m1), (a0, a1)) in self._site_slices.items()}
 
     def _op(self, key, kernel, plain=None):
         """The function site ``key`` runs, recorded in ``taken``: the
@@ -368,7 +373,7 @@ class FusedGenerator:
         """x (B, H, W, C_in), z (B, noise_size, 1) -> (B, H, W, n_out) f32."""
         dt = self.dtype
         self.taken = {}
-        mods = self._site_mods(W, z.float())
+        mods = site_mods(W, z.float(), self._site_slices)  # float32
         x = x.to(dt)
 
         # Level 1 -> pooled straight into level 2's padded s2d -> level 2 ->

@@ -1281,3 +1281,43 @@ def test_inference_benches(cuda):
         launches = {k: v for k, v in result["launches"].items() if v}
         assert launches == {"conv3x3_s2d_fused": 16, "conv3x3_s2d_fused_pool": 4,
                             "conv3x3_s2d_fused2": 4, "deconv_s2d": 2}
+
+
+@pytest.mark.gpu
+def test_folded_generator_matches_generator(cuda):
+    """The plain serving generator on BN-folded weights (``models/folded.py``,
+    cuDNN's fused conv-bias-relu) against ``GenUNet2D``'s eval forward at
+    the published widths (256, first_fm 32, one 42-slice subject, BatchNorm
+    made non-trivial): within 1e-4 with float32 products; with the serving
+    cells' TF32 convolutions each side rounds its own kernels, so the
+    folded forward's gap to the float32 one may be at most twice the
+    unfolded forward's. With ``use_pallas`` the folded forward runs its
+    seven FiLM sites through K8, as the unfolded module does."""
+    import dataclasses
+
+    import chip_smoke
+    from depgan_tpu_torch.models.folded import FoldedGenerator
+
+    cfg = ModelConfig()
+    variables = chip_smoke.randomized_variables(cfg, seed=18)
+    module = load_flax_variables(GenUNet2D(cfg, device=cuda), variables).eval()
+    folded = FoldedGenerator(cfg, variables, device=cuda)
+    with_k8 = FoldedGenerator(dataclasses.replace(cfg, use_pallas=True), variables, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.rand(42, 256, 256, 1, generator=g, device=cuda)
+    z = torch.randn(42, cfg.noise_size, 1, generator=g, device=cuda)
+    with torch.no_grad():
+        exact = module(x, z)
+        K.reset_launch_counts()
+        gap = float((folded(x, z) - exact).abs().max())
+        plain_launches = K.launches()["film_residual"]
+        gap_k8 = float((with_k8(x, z) - exact).abs().max())
+        k8_launches = K.launches()["film_residual"] - plain_launches
+        torch.backends.cudnn.allow_tf32 = True
+        tf32 = {"folded": float((folded(x, z) - exact).abs().max()),
+                "unfolded": float((module(x, z) - exact).abs().max())}
+    print(f"folded vs unfolded, float32: max abs {gap:.3e}, with K8 {gap_k8:.3e}; "
+          f"TF32 vs float32: {tf32}")
+    assert plain_launches == 0 and k8_launches == 7
+    assert gap <= 1e-4 and gap_k8 <= 1e-4
+    assert tf32["folded"] <= 2 * tf32["unfolded"], tf32
